@@ -1,0 +1,604 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``luminary_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, one or more lines each; any failure exits non-zero:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: the CUDA kernels from ``luminary_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together);
+3. kernels against their plain PyTorch versions at main-path shapes, on real
+   inputs from ``benchmark_scene(1920, 1080, 4)`` packed on the card: kernel B
+   (closest and any-hit; every lane where it and the plain packet walk differ
+   is checked for the packet cause), the unplanar ray pack, kernel A (every
+   table width and sub-stride the path uses), kernel C, and the random
+   streams (card against CPU), each with its time, bound, plain time and,
+   for kernel A and unplanar, a library yardstick;
+4. main path: the tree-tier bench scene at 1080p, depth 4, through the
+   Renderer, with launch counts of every kernel and Mrays/s;
+5. dense tier: ``cornell_scene(512, 512, 4)`` Mrays/s;
+6. correctness: 64-spp renders of two golden scenes on the card against
+   ``tests/golden`` (RMSE/scale < 0.02, the bound of tests/test_golden.py).
+
+Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
+and last ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``. Without a CUDA device it exits with 2 and
+prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+# operations of one child slab test and one Moller-Trumbore test, as written
+# in csrc/traverse_wide.cu (adds, multiplies, min/max, compares, 1 divide)
+SLAB_OPS = 25
+TRI_OPS = 50
+# operations of one child (16 per node level) / light (14 per leaf level)
+# weight in csrc/light_tree_descend.cu
+NODE_CHILD_OPS = 48
+LEAF_LIGHT_OPS = 26
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; nothing was run",
+              file=sys.stderr)
+        return 2
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    import numpy as np
+
+    from luminary_tpu_torch import kernels
+    from luminary_tpu_torch.ops import light_tree as LT
+    from luminary_tpu_torch.ops import random as R
+    from luminary_tpu_torch.ops import rowops as RO
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops.camera import generate_camera_rays
+    from luminary_tpu_torch.ops.intersect import MISS_DIST, ray_triangle
+    from luminary_tpu_torch.ops.vec import Vec3, dot, normalize
+    from luminary_tpu_torch.render.device_scene import SHP_COLS, SHP_FACE, unpack_oct_snorm16
+    from luminary_tpu_torch.render.renderer import Renderer
+    from luminary_tpu_torch.testing import benchmark_scene, cornell_scene, sun_plane_scene
+
+    out_dir = os.path.join(repo, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    report = {}
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 1. device ----
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log("[device] %s | nvidia-smi: %s | torch %s cuda %s" % (
+        name, smi, torch.__version__, torch.version.cuda))
+    report["device"] = {"name": name, "nvidia_smi": smi}
+
+    # ---- 2. build ----
+    t0 = time.monotonic()
+    built = kernels.build_all()
+    build_s = time.monotonic() - t0
+    log("[build] %d kernel libraries in %.2f s (parallel nvcc, sm_90a)" % (
+        len(built), build_s))
+    report["build"] = {"seconds": build_s,
+                       "ptxas": {k: v[1] for k, v in built.items()}}
+    for k in kernels.SOURCES:
+        kernels.load(k)
+
+    def cuda_ms(fn, iters=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    def bound(bytes_, ops):
+        t_b = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_o = ops / FP32_FLOPS * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    # ---- 3. kernels against their plain versions ----
+    t0 = time.monotonic()
+    r = Renderer(benchmark_scene(1920, 1080, max_depth=4), device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t0
+    ds, cam, cfg = r.device_scene, r.device_camera, r.config
+    bvh = ds.geo.bvh
+    log("[pack] tree-1080p: %.2f s; %d slots, %d wide nodes, depth %d, "
+        "%d lights, tree levels %d, lanes %d" % (
+            pack_s, bvh.tri_v0.x.shape[0], bvh.num_nodes, bvh.depth,
+            ds.lights.num_lights, ds.lights.tree_levels, r._px.shape[0]))
+    report["pack_s"] = pack_s
+    px, py = r._px, r._py
+    n = px.shape[0]
+    pixel_id = (py.long() * cfg.width + px.long()) & 0xFFFFFFFF
+    sid = torch.tensor(0, dtype=torch.int64, device=dev)
+    bn = R.blue_base(px, py)
+    origin, direction = generate_camera_rays(
+        cam, cfg.width, cfg.height, px, py, pixel_id, sid, bn=bn)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    tmax = torch.full((n,), MISS_DIST, device=dev)
+    kern = []
+
+    def sub(v, ix):
+        return Vec3(*(c[ix] for c in v))
+
+    # Where kernel B and its plain version (a 16-ray packet walk) disagree,
+    # the claimed cause is checked lane by lane: the plain walk tests a leaf
+    # for every live ray of a packet when any of them enters its box, while
+    # the kernel tests it only when the ray's own slab tests admit every box
+    # from the root down. parent maps: node/leaf -> (parent node, child k).
+    m_nodes = bvh.num_nodes
+    codes = bvh.rows.view(torch.int32)[:m_nodes, 96:112].long()
+    m_of = torch.arange(m_nodes, device=dev)[:, None].expand(-1, TR.BRANCH)
+    k_of = torch.arange(TR.BRANCH, device=dev)[None, :].expand(m_nodes, -1)
+    n_leaves = bvh.rows.shape[0] - m_nodes
+    node_par = torch.full((m_nodes,), -1, dtype=torch.long, device=dev)
+    node_park = node_par.clone()
+    leaf_par = torch.full((n_leaves,), -1, dtype=torch.long, device=dev)
+    leaf_park = leaf_par.clone()
+    inner = (codes >= 0) & (codes != TR.INVALID_CHILD)
+    node_par[codes[inner]] = m_of[inner]
+    node_park[codes[inner]] = k_of[inner]
+    leafc = codes < 0
+    leaf_par[~codes[leafc]] = m_of[leafc]
+    leaf_park[~codes[leafc]] = k_of[leafc]
+
+    def own_path_admits(o, d, t_max, slot):
+        """Per lane: do the ray's own slab tests (the kernel's arithmetic,
+        t in [1e-4, t_max]) admit every box from the root to slot's leaf?"""
+        inv = TR._safe_inv(d)
+        node = leaf_par[slot.long() // TR.WIDE_LEAF]
+        k = leaf_park[slot.long() // TR.WIDE_LEAF]
+        ok = torch.ones_like(t_max, dtype=torch.bool)
+        for _ in range(bvh.depth + 2):
+            live = node >= 0
+            r = bvh.rows[node.clamp(min=0)]
+            kk = k.clamp(min=0)[:, None]
+
+            def col(base):
+                return r.gather(1, kk + base)[:, 0]
+
+            t1x, t2x = (col(0) - o.x) * inv.x, (col(16) - o.x) * inv.x
+            t1y, t2y = (col(32) - o.y) * inv.y, (col(48) - o.y) * inv.y
+            t1z, t2z = (col(64) - o.z) * inv.z, (col(80) - o.z) * inv.z
+            enter = torch.maximum(
+                torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                torch.clamp(torch.minimum(t1z, t2z), min=1e-4))
+            leave = torch.minimum(
+                torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                torch.minimum(torch.maximum(t1z, t2z), t_max))
+            ok &= ~live | (enter <= leave)
+            nn = node.clamp(min=0)
+            node = torch.where(live, node_par[nn], -1)
+            k = torch.where(live, node_park[nn], -1)
+        return ok
+
+    def occluders_hidden_from_ray(o, d, t_max):
+        """Per lane: (number of triangles the ray hits in (1e-4, t_max),
+        whether the ray's own slab tests reject the path to every one)."""
+        n_hit = torch.zeros(o.x.shape[0], dtype=torch.long, device=dev)
+        hidden = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
+        tv0, te1, te2 = bvh.tri_v0, bvh.tri_e1, bvh.tri_e2
+        for a in range(0, o.x.shape[0], 32):
+            b = min(a + 32, o.x.shape[0])
+            t, _u, _v, h = ray_triangle(
+                Vec3(*(c[a:b, None] for c in o)), Vec3(*(c[a:b, None] for c in d)),
+                Vec3(*(c[None] for c in tv0)), Vec3(*(c[None] for c in te1)),
+                Vec3(*(c[None] for c in te2)))
+            lane, slot = torch.nonzero(h & (t < t_max[a:b, None]), as_tuple=True)
+            n_hit[a:b] = torch.bincount(lane, minlength=b - a)
+            adm = own_path_admits(sub(o, a + lane), sub(d, a + lane),
+                                  t_max[a + lane], slot)
+            hidden[a:b] &= torch.bincount(lane[adm], minlength=b - a) == 0
+        return n_hit, hidden
+
+    # kernel B, closest hit: first-depth camera rays
+    hit = TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, origin,
+                           direction, tmax, ones, False)
+    ix = torch.arange(0, n, 7, device=dev)  # >= 256k lanes spread over the frame
+    m = ix.shape[0]
+    ref = TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth,
+                                 sub(origin, ix), sub(direction, ix), tmax[ix],
+                                 ones[ix], False)
+    got = TR.Hit(*(f[ix] for f in hit))
+    same = got.slot == ref.slot
+    both = (got.slot >= 0) & (ref.slot >= 0)
+    tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+    other = torch.nonzero(~same & ~tie).flatten()
+    n_tie, n_other = int(tie.sum()), int(other.numel())
+    # a non-tie difference must be a triangle nearer than the kernel's hit
+    # that the plain walk reached through a packet-mate's box
+    hidden_c = 0
+    if n_other:
+        lanes = ix[other]
+        plain_nearer = (ref.slot[other] >= 0) & (ref.t[other] < got.t[other])
+        hidden = ~own_path_admits(sub(origin, lanes), sub(direction, lanes),
+                                  tmax[lanes], ref.slot[other].clamp(min=0))
+        hidden_c = int((plain_nearer & hidden).sum())
+    keep = same & (got.slot >= 0)
+    t_rel = float(((got.t - ref.t).abs() / ref.t.abs().clamp(min=1e-30))[keep].max())
+    uv_err = float(torch.maximum((got.u - ref.u).abs(), (got.v - ref.v).abs())[keep].max())
+    err_b = float(torch.maximum((got.t - ref.t).abs(),
+                                torch.maximum((got.u - ref.u).abs(),
+                                              (got.v - ref.v).abs()))[keep].max())
+    log("[kernel B closest] %d lanes vs plain: %d slots equal, %d exact-t ties, "
+        "%d other differences (%d of them a nearer triangle behind a box the "
+        "ray's own slab test rejects); t max rel err %.3g, u/v max abs err %.3g" % (
+            m, int(same.sum()), n_tie, n_other, hidden_c, t_rel, uv_err))
+    # tolerances of tests/test_torch_traverse.py; ties held to 1e-4 of all
+    # lanes; every other difference must have the packet cause above
+    assert t_rel <= 1e-5 and uv_err <= 1e-5, (t_rel, uv_err)
+    assert n_tie <= 1e-4 * m and hidden_c == n_other, (n_tie, n_other, hidden_c)
+    ms = cuda_ms(lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
+                                          origin, direction, tmax, ones, False))
+    stats, pstats = {}, {}
+    TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, origin, direction,
+                     tmax, ones, False, stats=stats)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth, origin, direction,
+                           tmax, ones, False, stats=pstats)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    table_bytes = bvh.rows.numel() * 4
+    # bytes: ray rows in (8 words), hits out (4 words), the table once;
+    # operations: the slab and triangle tests the per-ray walk ran
+    b_ms, b_by = bound(n * 32 + n * 16 + table_bytes,
+                       stats["node_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS)
+    log("[kernel B closest] %d rays: %.3f ms, plain %.3f ms, bound %.4f ms (%s; "
+        "per-ray walk %d slab + %d triangle tests; the plain packet walk ran "
+        "%d + %d)" % (n, ms, plain_ms, b_ms, b_by, stats["node_tests"],
+                      stats["tri_tests"], pstats["node_tests"], pstats["tri_tests"]))
+    report["kernel_b_closest_tests"] = dict(kernel=stats, plain_packet=pstats)
+    kern.append(dict(
+        name="traverse_wide.closest", route="cuda",
+        source="luminary_tpu_torch/csrc/traverse_wide.cu",
+        replaces="luminary_tpu/ops/traverse_pallas.py:120",
+        variant="closest", max_abs_err=err_b, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        differing_lanes=n_tie + n_other, checked_lanes=m))
+
+    # kernel B, any hit: the batched shadow rays of those hits (sun + light)
+    valid = hit.slot >= 0
+    t_safe = torch.where(valid, hit.t, 1.0)
+    pos = Vec3(*(o + d * t_safe for o, d in zip(origin, direction)))
+    srow = RO.gather_soa_plain(ds.shade_hot, torch.where(valid, hit.slot, 0), SHP_COLS)
+    fx, fy, fz = unpack_oct_snorm16(srow[SHP_FACE])
+    s_g = torch.where(fx * direction.x + fy * direction.y + fz * direction.z > 0, -1.0, 1.0)
+    so = Vec3(pos.x + fx * s_g * 1e-3, pos.y + fy * s_g * 1e-3, pos.z + fz * s_g * 1e-3)
+    lrows = ds.light_slot_rows
+    li = (pixel_id % lrows.shape[0]).long()
+    tgt = Vec3(*(lrows[li, c] + (lrows[li, 3 + c] + lrows[li, 6 + c]) / 3.0
+                 for c in range(3)))
+    to_l = Vec3(tgt.x - so.x, tgt.y - so.y, tgt.z - so.z)
+    dist = torch.sqrt(dot(to_l, to_l))
+    l_dir = normalize(to_l)
+    sun = ds.sky.sun_dir
+    sh_o = Vec3(*(torch.cat([c, c]) for c in so))
+    sh_d = Vec3(torch.cat([sun[0].expand(n), l_dir.x]),
+                torch.cat([sun[1].expand(n), l_dir.y]),
+                torch.cat([sun[2].expand(n), l_dir.z]))
+    sh_t = torch.cat([tmax, dist - 2e-3])
+    sh_a = torch.cat([valid, valid])
+    occ = TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, sh_o, sh_d, sh_t,
+                           sh_a, True)
+    ix2 = torch.arange(0, 2 * n, 7, device=dev)
+    occ_ref = TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth,
+                                     sub(sh_o, ix2), sub(sh_d, ix2), sh_t[ix2],
+                                     sh_a[ix2], True)
+    kernel_only = int((occ[ix2] & ~occ_ref).sum())
+    plain_only = torch.nonzero(~occ[ix2] & occ_ref).flatten()
+    n_diff = kernel_only + int(plain_only.numel())
+    # every lane only the plain walk finds occluded must hit a triangle in
+    # range, and the ray's own slab tests must reject the path to each one
+    lanes = ix2[plain_only]
+    n_hit, hidden = occluders_hidden_from_ray(sub(sh_o, lanes), sub(sh_d, lanes),
+                                              sh_t[lanes])
+    explained = int(((n_hit > 0) & hidden).sum())
+    log("[kernel B any-hit] %d lanes vs plain: %d flags differ (%d only the "
+        "kernel, %d only the plain walk finds occluded, of which %d hit a "
+        "triangle in range whose path the ray's own slab tests reject; %d "
+        "occluded)" % (ix2.shape[0], n_diff, kernel_only, int(plain_only.numel()),
+                       explained, int(occ_ref.sum())))
+    assert kernel_only == 0 and explained == plain_only.numel(), (
+        kernel_only, int(plain_only.numel()), explained)
+    ms = cuda_ms(lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
+                                          sh_o, sh_d, sh_t, sh_a, True))
+    stats, pstats = {}, {}
+    TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, sh_o, sh_d, sh_t,
+                     sh_a, True, stats=stats)
+    torch.cuda.synchronize()
+    e0.record()
+    TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth, sh_o, sh_d, sh_t,
+                           sh_a, True, stats=pstats)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    b_ms, b_by = bound(2 * n * 32 + 2 * n + table_bytes,
+                       stats["node_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS)
+    log("[kernel B any-hit] %d rays: %.3f ms, plain %.3f ms, bound %.4f ms (%s; "
+        "per-ray walk %d slab + %d triangle tests; the plain packet walk ran "
+        "%d + %d)" % (2 * n, ms, plain_ms, b_ms, b_by, stats["node_tests"],
+                      stats["tri_tests"], pstats["node_tests"], pstats["tri_tests"]))
+    report["kernel_b_any_hit_tests"] = dict(kernel=stats, plain_packet=pstats)
+    kern.append(dict(
+        name="traverse_wide.any_hit", route="cuda",
+        source="luminary_tpu_torch/csrc/traverse_wide.cu",
+        replaces="luminary_tpu/ops/traverse_pallas.py:120",
+        variant="any_hit", max_abs_err=1.0 if n_diff else 0.0, ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        differing_lanes=n_diff, explained_lanes=explained,
+        checked_lanes=int(ix2.shape[0])))
+
+    # unplanar: the [C, N] -> [N, C] pack of the ray lanes kernel B reads,
+    # at the camera-ray and shadow-ray shapes
+    u_rows = []
+    for label, cols in (
+            ("camera rays C8", [*origin[:3], tmax, *direction[:3], ones.int()]),
+            ("shadow rays C8", [*sh_o, sh_t, *sh_d, sh_a.int()])):
+        got_u = RO.unplanar(cols)
+        ref_u = RO.unplanar_plain(cols)
+        assert torch.equal(got_u, ref_u), label
+        nl = cols[0].shape[0]
+        ms = cuda_ms(lambda: RO.unplanar(cols))
+        plain_ms = cuda_ms(lambda: RO.unplanar_plain(cols), iters=3)
+        cols_i = [c.view(torch.int32) for c in cols]
+        lib_ms = cuda_ms(lambda: torch.stack(cols_i, dim=1))
+        b_ms, b_by = bound(2 * nl * len(cols) * 4, 0)
+        log("[unplanar %s] %d lanes: exact; %.3f ms, plain %.3f ms, library "
+            "%.3f ms (torch.stack), bound %.4f ms (%s)" % (
+                label, nl, ms, plain_ms, lib_ms, b_ms, b_by))
+        u_rows.append(dict(case=label, lanes=nl, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    kern.append(dict(
+        name="unplanar", route="cuda",
+        source="luminary_tpu_torch/csrc/gather_soa.cu",
+        replaces="luminary_tpu/ops/rowops.py:71",
+        max_abs_err=0.0, ms=u_rows[0]["ms"], plain_ms=u_rows[0]["plain_ms"],
+        bound_ms=u_rows[0]["bound_ms"], bound_by=u_rows[0]["bound_by"],
+        library_ms=u_rows[0]["library_ms"], shape=u_rows[0]["case"],
+        cases=u_rows))
+    del occ, occ_ref, sh_o, sh_d, sh_t, sh_a
+
+    # kernel A: every table the main path gathers from, at N lanes
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rand_idx(rows):
+        return torch.randint(0, rows, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    p = ds.shade_hot.shape[0]
+    inter = torch.zeros(((p + 7) // 8 * 8, SHP_COLS), dtype=torch.int32, device=dev)
+    inter[:p] = ds.shade_hot
+    inter = inter.reshape(-1, 8, SHP_COLS).transpose(1, 2).reshape(-1, SHP_COLS * 8).contiguous()
+    cases = [
+        ("shade rows C16 s1", ds.shade_hot, hit.slot.int(), SHP_COLS, 1),
+        ("fused light rows C37", lrows, rand_idx(lrows.shape[0]), 37, 1),
+        ("tree candidate C37->18", lrows, rand_idx(lrows.shape[0]), 18, 1),
+        ("aerial rows C128", ds.sky.aerial_rows, rand_idx(ds.sky.aerial_rows.shape[0]), 128, 1),
+        ("env rows C16", ds.sky.env_rows, rand_idx(ds.sky.env_rows.shape[0]), 16, 1),
+        ("ggx quad C4", ds.ggx_quad, rand_idx(ds.ggx_quad.shape[0]), 4, 1),
+        ("reference layout C128 s8", inter, hit.slot.int(), SHP_COLS, 8),
+    ]
+    a_rows = []
+    for label, table, idx, n_cols, s in cases:
+        got = RO.gather_soa(table, idx, n_cols, s)
+        ref = RO.gather_soa_plain(table, idx, n_cols, s)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), label
+        ms = cuda_ms(lambda: RO.gather_soa(table, idx, n_cols, s))
+        plain_ms = cuda_ms(lambda: RO.gather_soa_plain(table, idx, n_cols, s), iters=3)
+        lib_ms = None
+        if s == 1:
+            idx_c = idx.long().clamp(0, table.shape[0] - 1)
+            lib_ms = cuda_ms(lambda: table[:, :n_cols].index_select(0, idx_c).t().contiguous())
+        # bytes the function must move: n_cols words of each distinct slot
+        # this run selects, every lane's index, every output word
+        k = idx.long()
+        r0 = torch.div(k, s, rounding_mode="floor")
+        r0 = torch.where(r0 < 0, r0 + table.shape[0], r0).clamp(0, table.shape[0] - 1)
+        slots = torch.unique(r0 * s + (k - torch.div(k, s, rounding_mode="floor") * s))
+        b_ms, b_by = bound(slots.numel() * n_cols * 4 + n * 4 + n * n_cols * 4, 0)
+        log("[kernel A %s] %d lanes: exact; %.3f ms, plain %.3f ms, library %s ms, "
+            "bound %.4f ms (%s)" % (label, n, ms, plain_ms,
+                                    "%.3f" % lib_ms if lib_ms is not None else "n/a",
+                                    b_ms, b_by))
+        a_rows.append(dict(case=label, lanes=n, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    main_a = a_rows[0]
+    kern.append(dict(
+        name="gather_soa", route="cuda",
+        source="luminary_tpu_torch/csrc/gather_soa.cu",
+        replaces="luminary_tpu/ops/rowops.py:93",
+        also_replaces="luminary_tpu/ops/rowops.py:40",
+        max_abs_err=0.0, ms=main_a["ms"], plain_ms=main_a["plain_ms"],
+        bound_ms=main_a["bound_ms"], bound_by=main_a["bound_by"],
+        library_ms=main_a["library_ms"], shape=main_a["case"], cases=a_rows))
+
+    # kernel C: descents from the first-depth shading points
+    lights = ds.lights
+    rnd = LT.level_randoms(lights.tree_levels, pixel_id, sid, 0, n, bn=bn)
+    got = LT.light_tree_descend(lights.tree_rows, lights.tree_num_nodes,
+                                lights.tree_levels, so, rnd)
+    ref = LT.light_tree_descend_plain(lights.tree_rows, lights.tree_num_nodes,
+                                      lights.tree_levels, so, rnd)
+    diff = (got[0] != ref[0]) | (got[2] != ref[2])
+    bad = torch.nonzero(diff).flatten()
+    edge = 0
+    if bad.numel():
+        # a differing pick must flip in the plain version when some level's
+        # uniform moves by 1e-6: the lane sits on a CDF edge
+        sub_pos = sub(so, bad)
+        flips = torch.zeros(bad.numel(), dtype=torch.bool, device=dev)
+        for lvl in range(lights.tree_levels + 1):
+            for delta in (-1e-6, 1e-6):
+                rr = rnd[:, bad].clone()
+                rr[lvl] = (rr[lvl] + delta).clamp(0.0, 0.99999994)
+                alt = LT.light_tree_descend_plain(
+                    lights.tree_rows, lights.tree_num_nodes, lights.tree_levels,
+                    sub_pos, rr)
+                flips |= alt[0] == got[0][bad]
+        edge = int(flips.sum())
+        assert bool(flips.all()), "light-tree picks differ off a CDF edge"
+    ok = ~diff & got[2]
+    pdf_rel = float(((got[1] - ref[1]).abs() / ref[1].abs().clamp(min=1e-30))[ok].max())
+    pdf_abs = float((got[1] - ref[1]).abs()[ok].max())
+    log("[kernel C] %d lanes vs plain: %d picks differ, all %d within 1e-6 of a "
+        "CDF edge; pdf max rel err %.3g" % (n, int(bad.numel()), edge, pdf_rel))
+    assert bad.numel() <= 1e-4 * n and pdf_rel <= 1e-5
+    ms = cuda_ms(lambda: LT.light_tree_descend(
+        lights.tree_rows, lights.tree_num_nodes, lights.tree_levels, so, rnd))
+    plain_ms = cuda_ms(lambda: LT.light_tree_descend_plain(
+        lights.tree_rows, lights.tree_num_nodes, lights.tree_levels, so, rnd), iters=3)
+    lv = lights.tree_levels + 1
+    # inputs once (tree table, positions, uniforms), outputs once; the
+    # per-lane row reads (n * levels * 512 B) come from L2, not HBM
+    b_ms, b_by = bound(lights.tree_rows.numel() * 4 + n * (12 + 4 * lv) + n * 9,
+                       n * (lights.tree_levels * 16 * NODE_CHILD_OPS
+                            + 14 * LEAF_LIGHT_OPS))
+    log("[kernel C] %d descents x %d levels: %.3f ms, plain %.3f ms, bound %.4f ms "
+        "(%s); per-lane row traffic %.3f ms at HBM rate" % (
+            n, lv, ms, plain_ms, b_ms, b_by, n * lv * 512 / HBM_BYTES_PER_S * 1e3))
+    kern.append(dict(
+        name="light_tree_descend", route="cuda",
+        source="luminary_tpu_torch/csrc/light_tree_descend.cu",
+        replaces="luminary_tpu/ops/light_tree_pallas.py:88",
+        max_abs_err=pdf_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, differing_lanes=int(bad.numel())))
+
+    # random streams: card against CPU, 10^6 lanes
+    rng = np.random.default_rng(3)
+    pid = torch.as_tensor(rng.integers(0, 2**32, 10**6, dtype=np.uint64).astype(np.int64))
+    sids = torch.as_tensor(rng.integers(0, 2**32, 10**6, dtype=np.uint64).astype(np.int64))
+    qx = torch.as_tensor(rng.integers(0, 1920, 10**6).astype(np.int32))
+    qy = torch.as_tensor(rng.integers(0, 1080, 10**6).astype(np.int32))
+    bn_c, bn_d = R.blue_base(qx, qy), R.blue_base(qx.to(dev), qy.to(dev))
+    n_rand = 0
+    for target in (R.RandomTarget.BSDF_CHOICE, R.RandomTarget.LIGHT_TREE_LEVEL,
+                   R.RandomTarget.LIGHT_SUN):
+        for depth in (0, 3):
+            for fn in (R.random_1d, R.random_2d):
+                for use_bn in (False, True):
+                    a = fn(target, pid, sids, depth, bn=bn_c if use_bn else None)
+                    b = fn(target, pid.to(dev), sids.to(dev), depth,
+                           bn=bn_d if use_bn else None)
+                    assert torch.equal(a, b.cpu()), (fn.__name__, target, depth, use_bn)
+                    n_rand += 1
+    log("[random] random_1d/random_2d on the card equal the CPU bit for bit "
+        "(%d streams x 10^6 lanes)" % n_rand)
+    del hit, ref, got, rnd, pos, so, srow, inter
+    torch.cuda.empty_cache()
+
+    # ---- 4. main path: tree-1080p through the Renderer ----
+    warm, timed = 2, 6
+    r.render_samples(warm)
+    RO.gather_soa.launches = 0
+    RO.unplanar.launches = 0
+    TR.traverse_wide.launches = 0
+    TR.traverse_wide.variant_launches.update(closest=0, any_hit=0)
+    LT.light_tree_descend.launches = 0
+    t0 = time.monotonic()
+    r.render_samples(timed)
+    dt = time.monotonic() - t0
+    launches = {
+        "gather_soa": RO.gather_soa.launches,
+        "unplanar": RO.unplanar.launches,
+        "traverse_wide.closest": TR.traverse_wide.variant_launches["closest"],
+        "traverse_wide.any_hit": TR.traverse_wide.variant_launches["any_hit"],
+        "light_tree_descend": LT.light_tree_descend.launches,
+    }
+    rays = r._last_rays_per_sample
+    mrays = rays * timed / dt / 1e6
+    npix = 1920 * 1080
+    acc = r.accum.radiance[:npix]
+    finite = bool(torch.isfinite(acc).all())
+    total = float(acc.sum())
+    log("[main path] tree-1080p depth 4: %d samples in %.3f s: %.3f Mrays/s, "
+        "%.3f spp/s (%.0f rays/sample); launches %s; accumulation finite=%s "
+        "sum=%.6g | %s" % (timed, dt, mrays, timed / dt, rays, launches, finite,
+                           total, smi))
+    assert all(v > 0 for v in launches.values()), launches
+    assert finite and total > 0.0
+    report["tree_1080p"] = dict(samples=timed, seconds=dt, mrays=mrays,
+                                spp_per_s=timed / dt, rays_per_sample=rays,
+                                launches=launches, pack_s=pack_s)
+    for k in kern:
+        k["launches"] = launches[k["name"]]
+    del r, acc
+    torch.cuda.empty_cache()
+
+    # ---- 5. dense tier: cornell-512 ----
+    t0 = time.monotonic()
+    rc = Renderer(cornell_scene(512, 512, max_depth=4), device=dev)
+    c_pack = time.monotonic() - t0
+    rc.render_samples(2)
+    t0 = time.monotonic()
+    rc.render_samples(16)
+    dt = time.monotonic() - t0
+    c_mrays = rc._last_rays_per_sample * 16 / dt / 1e6
+    c_acc = rc.accum.radiance
+    assert bool(torch.isfinite(c_acc).all()) and float(c_acc.sum()) > 0
+    log("[dense tier] cornell-512 depth 4: pack %.2f s, 16 samples in %.3f s: "
+        "%.3f Mrays/s, %.3f spp/s | %s" % (c_pack, dt, c_mrays, 16 / dt, smi))
+    report["cornell_512"] = dict(samples=16, seconds=dt, mrays=c_mrays,
+                                 spp_per_s=16 / dt, pack_s=c_pack)
+    del rc, c_acc
+
+    # ---- 6. correctness on the card against the repository's goldens ----
+    golden = {}
+    for gname, scene in (("cornell_32", cornell_scene(32, 32, max_depth=4)),
+                         ("sun_plane_32", sun_plane_scene(32, 32))):
+        rg = Renderer(scene, device=dev)
+        rg.render_samples(64)
+        img = rg.get_radiance()
+        ref = np.load(os.path.join(repo, "tests", "golden", gname + "_64spp.npy"))
+        rel = float(np.sqrt(np.mean((img - ref) ** 2)) / (np.abs(ref).mean() + 1e-6))
+        golden[gname] = rel
+        log("[golden] %s at 64 spp on the card: RMSE/scale %.3g (bound 0.02)"
+            % (gname, rel))
+        assert np.isfinite(img).all() and rel < 0.02, (gname, rel)
+    report["golden_rmse_over_scale"] = golden
+    report["kernels"] = kern
+
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys} for kr in kern]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Device choice for the port's entry points: the card unless the caller
+asks for the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA card; without one this raises instead of
+    quietly running the plain CPU path. Any explicit device is taken as is."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)

@@ -1,0 +1,207 @@
+"""Sky radiance evaluation (port of ``luminary_tpu/ops/sky.py``; DEFAULT and
+CONSTANT_COLOR modes).
+
+The DEFAULT atmosphere is baked at pack time into a lat-long map stored as
+bilinear-quad rows; a miss is one kernel-A row gather plus a lerp. The solar
+disc stays analytic; moon and stars are procedural. Aerial perspective reads
+one 128-column distance-curve row per lane, also through kernel A.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .atmosphere import AERIAL_D_MAX, AERIAL_D_MIN, AERIAL_ND, AERIAL_NS, AERIAL_NU
+from .random import M32
+from .rowops import gather_planar
+from .vec import Vec3, dot as vdot, normalize
+
+MOON_ANGULAR_RADIUS = 0.00452
+MOON_COS_RADIUS = 0.999989786
+MOON_ALBEDO = 0.12
+STARS_GRID = 64
+
+SUN_COS_RADIUS = 0.99998869
+SUN_ANGULAR_RADIUS = 0.004675
+_SUN_SOLID_ANGLE = 6.87e-5
+SUN_IRRADIANCE = 1.25
+SUN_RADIANCE = SUN_IRRADIANCE / _SUN_SOLID_ANGLE
+
+# f32 evaluations of the reference's jnp constants (bit-identical to them)
+SUN_COS_MAX = float(np.cos(np.float32(SUN_ANGULAR_RADIUS)))
+SUN_SOLID_ANGLE = float(np.float32(2.0 * np.pi)
+                        * (np.float32(1.0) - np.float32(SUN_COS_MAX)))
+_AERIAL_LOG_SPAN = float(np.log(np.float32(AERIAL_D_MAX / AERIAL_D_MIN)))
+_TWO_PI = 2.0 * np.pi
+
+
+def sun_dir_vec(sky) -> Vec3:
+    return Vec3(sky.sun_dir[0], sky.sun_dir[1], sky.sun_dir[2])
+
+
+def sample_env_rows(sky, d: Vec3):
+    """Bilinear lat-long fetch from the quad-row env layout: one row gather
+    carries the 2x2 footprint. Returns (r, g, b)."""
+    h = float(sky.env_h)
+    w = float(sky.env_w)
+    wi = int(sky.env_w)
+    theta = torch.arccos(torch.clamp(d.y, -1.0, 1.0))
+    phi = torch.atan2(d.z, d.x) % _TWO_PI
+    fy = torch.clamp(theta * (1.0 / np.pi) * h - 0.5, 0.0, h - 1.001)
+    fx = phi * (0.5 / np.pi) * w - 0.5
+    x0f = torch.floor(fx)
+    x0 = x0f.to(torch.int32) % wi
+    y0 = torch.clamp(fy.to(torch.int32), 0, int(sky.env_h) - 2)
+    wy = fy - y0.to(torch.float32)
+    wx = fx - x0f
+    r0 = gather_planar(sky.env_rows, y0 * wi + x0)  # [16, N]
+    one_wx = 1.0 - wx
+    one_wy = 1.0 - wy
+
+    def lerp(c):
+        top = r0[c] * one_wx + r0[c + 4] * wx
+        bot = r0[c + 8] * one_wx + r0[c + 12] * wx
+        return top * one_wy + bot * wy
+
+    return lerp(0), lerp(1), lerp(2)
+
+
+def _hash_u32(x):
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & M32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & M32
+    x = x ^ (x >> 16)
+    return x
+
+
+def _hash01(x):
+    return _hash_u32(x).to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def stars_radiance(sky, d: Vec3):
+    """Procedural star field on a lat-long hash grid."""
+    u = torch.atan2(d.z, d.x) * (0.5 / np.pi) + 0.5
+    v = torch.arccos(torch.clamp(d.y, -1.0, 1.0)) * (1.0 / np.pi)
+    gx = torch.clamp((u * STARS_GRID).to(torch.int32), 0, STARS_GRID - 1)
+    gy = torch.clamp((v * STARS_GRID).to(torch.int32), 0, STARS_GRID - 1)
+    cell = (gy * STARS_GRID + gx).to(torch.int64) & M32
+    seed = int(sky.stars_seed) & M32
+    h0 = _hash_u32(((cell * 0x9E3779B9) + seed) & M32)
+    p_star = min(max(float(np.float32(sky.stars_count)
+                           / np.float32(STARS_GRID * STARS_GRID)), 0.0), 1.0)
+    present = _hash01(h0) < np.float32(p_star)
+    su = (gx.to(torch.float32) + _hash01((h0 + 1) & M32)) / STARS_GRID
+    sv = (gy.to(torch.float32) + _hash01((h0 + 2) & M32)) / STARS_GRID
+    phi = (su - 0.5) * _TWO_PI
+    theta = sv * np.pi
+    sd = Vec3(torch.cos(phi) * torch.sin(theta), torch.cos(theta),
+              torch.sin(phi) * torch.sin(theta))
+    cos_d = torch.clamp(vdot(d, sd), -1.0, 1.0)
+    ang = torch.sqrt(torch.clamp(2.0 * (1.0 - cos_d), min=0.0))
+    radius = 3e-4 * (0.5 + _hash01((h0 + 3) & M32))
+    glow = torch.exp(-(ang * ang) / torch.clamp(2.0 * radius * radius, min=1e-12))
+    h4 = _hash01((h0 + 4) & M32)
+    h4sq = h4 * h4
+    brightness = (0.2 + 0.8 * (h4sq * h4sq)) * sky.stars_intensity
+    i = torch.where(present, glow * brightness, 0.0)
+    warm = _hash01((h0 + 5) & M32)
+    return i * (0.8 + 0.4 * warm), i, i * (1.2 - 0.4 * warm)
+
+
+def moon_radiance(sky, d: Vec3):
+    """Sun-lit moon disc with procedural crater mottling."""
+    md = Vec3(sky.moon_dir[0], sky.moon_dir[1], sky.moon_dir[2])
+    cos_m = vdot(d, md)
+    in_disc = cos_m >= MOON_COS_RADIUS
+    up = torch.where(torch.abs(sky.moon_dir[1]) < 0.99, 1.0, 0.0)
+    tx = normalize(Vec3(
+        -md.z * up,
+        md.z * (1.0 - up),
+        md.x * up - md.y * (1.0 - up),
+    ))
+    ty = Vec3(
+        md.y * tx.z - md.z * tx.y,
+        md.z * tx.x - md.x * tx.z,
+        md.x * tx.y - md.y * tx.x,
+    )
+    lx = vdot(d, tx) / MOON_ANGULAR_RADIUS
+    ly = vdot(d, ty) / MOON_ANGULAR_RADIUS
+    r2 = torch.clamp(lx * lx + ly * ly, 0.0, 1.0)
+    lz = torch.sqrt(1.0 - r2)
+    n = Vec3(
+        tx.x * lx + ty.x * ly - md.x * lz,
+        tx.y * lx + ty.y * ly - md.y * lz,
+        tx.z * lx + ty.z * ly - md.z * lz,
+    )
+    lambert = torch.clamp(vdot(n, sun_dir_vec(sky)), min=0.0)
+    cell = ((lx * 8.0 + sky.moon_tex_offset).to(torch.int32) * 37
+            + (ly * 8.0).to(torch.int32) * 101).to(torch.int64) & M32
+    mottle = 0.7 + 0.3 * _hash01(cell)
+    radiance = torch.where(
+        in_disc, lambert * mottle * (MOON_ALBEDO / np.pi) * SUN_IRRADIANCE, 0.0)
+    return radiance, in_disc
+
+
+def sky_radiance(sky, direction: Vec3, include_sun: bool = True) -> Vec3:
+    """Environment radiance for escaping rays → RGB Vec3 of [N] channels."""
+    d = direction
+    if int(sky.mode) == 2:
+        c = sky.constant_color
+        return Vec3(c[0].expand(d.x.shape), c[1].expand(d.x.shape),
+                    c[2].expand(d.x.shape))
+    r, g, b = sample_env_rows(sky, d)
+    cos_sun = vdot(d, sun_dir_vec(sky))
+    in_disc = cos_sun >= SUN_COS_RADIUS
+    center = torch.clamp((cos_sun - SUN_COS_RADIUS) / (1.0 - SUN_COS_RADIUS), 0.0, 1.0)
+    limb = torch.where(in_disc, 0.3 + 0.7 * torch.sqrt(center), 0.0)
+    disc = limb * float(bool(include_sun))
+    r = r + disc * sky.sun_disc_radiance[0]
+    g = g + disc * sky.sun_disc_radiance[1]
+    b = b + disc * sky.sun_disc_radiance[2]
+
+    moon, in_moon = moon_radiance(sky, d)
+    sr, sg, sb = stars_radiance(sky, d)
+    block = in_moon | in_disc
+    sr = torch.where(block, 0.0, sr)
+    sg = torch.where(block, 0.0, sg)
+    sb = torch.where(block, 0.0, sb)
+    return Vec3(r + (moon + sr), g + (moon + sg), b + (moon + sb))
+
+
+def aerial_fetch(sky, direction: Vec3, dist):
+    """Aerial perspective → ((transmittance rgb), (inscatter rgb)) for view
+    segments of ``dist`` km: one kernel-A row gather per lane, the distance
+    curve lerped in registers."""
+    mu = torch.clamp(direction.y, -1.0, 1.0)
+    mi = torch.clamp(((mu + 1.0) * 0.5 * AERIAL_NU).to(torch.int32), 0, AERIAL_NU - 1)
+    sx, sz = sky.sun_dir[0], sky.sun_dir[2]
+    az_v = torch.atan2(direction.z, direction.x)
+    az_s = torch.atan2(sz, sx)
+    rel = (az_v - az_s) % _TWO_PI
+    si = torch.clamp((rel * (AERIAL_NS / _TWO_PI)).to(torch.int32), 0, AERIAL_NS - 1)
+    row = gather_planar(sky.aerial_rows, mi * AERIAL_NS + si)  # [128, N]
+    logr = torch.log(torch.clamp(dist, AERIAL_D_MIN, AERIAL_D_MAX) / AERIAL_D_MIN)
+    t = logr / _AERIAL_LOG_SPAN * (AERIAL_ND - 1)
+    k0 = torch.clamp(t.to(torch.int32), 0, AERIAL_ND - 2)
+    w = (t - k0.to(torch.float32))[None, :]
+    ks = torch.arange(AERIAL_ND, dtype=torch.int32, device=dist.device)[:, None]
+    sel0 = (ks == k0[None, :]).to(torch.float32)
+    sel1 = (ks == (k0 + 1)[None, :]).to(torch.float32)
+    sel = sel0 * (1.0 - w) + sel1 * w  # [ND, N]
+
+    def curve(base):
+        return tuple(
+            torch.sum(row[base + c:base + 3 * AERIAL_ND:3] * sel, dim=0)
+            for c in range(3))
+
+    fade = torch.clamp(dist / AERIAL_D_MIN, 0.0, 1.0)
+    ins = tuple(c * fade for c in curve(0))
+    tr = tuple(1.0 + (c - 1.0) * fade for c in curve(48))
+    return tr, ins
+
+
+def sun_solid_angle_radiance(sky) -> torch.Tensor:
+    """Mean solar-disc radiance used by NEE (zero for constant skies)."""
+    return sky.sun_disc_radiance * (0.0 if int(sky.mode) == 2 else 1.0)

@@ -1,0 +1,132 @@
+"""Component-SoA 3-vectors for the hot path (port of ``luminary_tpu/ops/vec.py``).
+
+A :class:`Vec3` is a NamedTuple of three flat ``[N]`` tensors. The JAX
+package chose this layout against the TPU's lane padding; the port keeps it
+so that every module compares like with like against the reference, and
+because per-component tensors are also coalesced on a GPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Vec3(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+    def __add__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x + o.x, self.y + o.y, self.z + o.z)
+        return Vec3(self.x + o, self.y + o, self.z + o)
+
+    def __radd__(self, o):
+        return self.__add__(o)
+
+    def __sub__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x - o.x, self.y - o.y, self.z - o.z)
+        return Vec3(self.x - o, self.y - o, self.z - o)
+
+    def __rsub__(self, o):
+        return Vec3(o - self.x, o - self.y, o - self.z)
+
+    def __mul__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
+        return Vec3(self.x * o, self.y * o, self.z * o)
+
+    def __rmul__(self, o):
+        return self.__mul__(o)
+
+    def __truediv__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
+        return Vec3(self.x / o, self.y / o, self.z / o)
+
+    def __neg__(self):
+        return Vec3(-self.x, -self.y, -self.z)
+
+    @staticmethod
+    def of(x, y, z, like):
+        """Vec3 of float32 constants broadcast to ``like``'s shape."""
+        ref = like.x if isinstance(like, Vec3) else like
+        return Vec3(*(torch.full(ref.shape, float(c), dtype=torch.float32,
+                                 device=ref.device) for c in (x, y, z)))
+
+
+def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
+    """``num / t`` with one IEEE division, as the reference computes it.
+    (PyTorch evaluates ``float / tensor`` as ``reciprocal(t) * float``,
+    which rounds twice.)"""
+    return torch.div(torch.full_like(t, num), t)
+
+
+def dot(a: Vec3, b: Vec3):
+    return a.x * b.x + a.y * b.y + a.z * b.z
+
+
+def cross(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(
+        a.y * b.z - a.z * b.y,
+        a.z * b.x - a.x * b.z,
+        a.x * b.y - a.y * b.x,
+    )
+
+
+def length(v: Vec3):
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
+def normalize(v: Vec3, eps: float = 1e-20) -> Vec3:
+    inv = torch.reciprocal(torch.clamp(length(v), min=eps))
+    return Vec3(v.x * inv, v.y * inv, v.z * inv)
+
+
+def vwhere(mask, a: Vec3, b: Vec3) -> Vec3:
+    """Component select by an ``[N]`` (or scalar) mask."""
+    return Vec3(
+        torch.where(mask, a.x, b.x),
+        torch.where(mask, a.y, b.y),
+        torch.where(mask, a.z, b.z),
+    )
+
+
+def reflect(v: Vec3, n: Vec3) -> Vec3:
+    d = 2.0 * dot(v, n)
+    return Vec3(v.x - d * n.x, v.y - d * n.y, v.z - d * n.z)
+
+
+def orthonormal_basis(n: Vec3) -> tuple[Vec3, Vec3]:
+    """Branchless ONB (Duff et al. 2017)."""
+    s = torch.where(n.z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n.z)
+    b = n.x * n.y * a
+    t = Vec3(1.0 + s * n.x * n.x * a, s * b, -s * n.x)
+    bt = Vec3(b, s + n.y * n.y * a, -n.y)
+    return t, bt
+
+
+def quaternion_apply_v(qw, qx, qy, qz, v: Vec3) -> Vec3:
+    """Rotate v by quaternion components (0-d or ``[N]`` tensors)."""
+    u = Vec3(qx, qy, qz)
+    dot_uv = dot(u, v)
+    dot_uu = qx * qx + qy * qy + qz * qz
+    c = cross(u, v)
+    s = qw
+    k1 = 2.0 * dot_uv
+    k2 = s * s - dot_uu
+    k3 = 2.0 * s
+    return Vec3(
+        u.x * k1 + v.x * k2 + c.x * k3,
+        u.y * k1 + v.y * k2 + c.y * k3,
+        u.z * k1 + v.z * k2 + c.z * k3,
+    )
+
+
+def gather(tab: Vec3, idx) -> Vec3:
+    """Per-component table gather: tab components are ``[M]`` tensors."""
+    return Vec3(tab.x[idx], tab.y[idx], tab.z[idx])

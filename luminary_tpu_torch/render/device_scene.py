@@ -1,0 +1,650 @@
+"""Scene → device pack (port of ``luminary_tpu/render/device_scene.py``,
+main-path parts).
+
+Geometry, materials, lights and shade tables are packed in host numpy (the
+same code as the reference, so every word compares) and uploaded once; the
+sky's atmosphere LUTs and bakes run in PyTorch on the target device. The
+shade table is stored one slot per row, ``[P, SHP_COLS]`` i32 (64 bytes):
+the reference's 8-slots-per-row interleave existed only for the TPU's
+gather-size knee. Quantized words are bit-identical per slot.
+
+Features this slice does not port are refused with NotImplementedError, never
+stubbed: cutout (alpha < 1) materials, textures, HDRI skies, the ocean and
+particles.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..bvh.native import build_wide_native
+from ..device import resolve_device
+from ..ops.ggx import ggx_energy_quad
+from ..ops.lights import DeviceLights, build_alias_table, lights_to_device, pack_lights_np
+from ..ops.traverse import DeviceBVH, pack_device_bvh
+from ..ops.vec import Vec3
+from ..scene.entities import Material, MaterialBaseSubstrate
+from ..scene.scene import Scene
+from ..utils.log import info_message
+
+MAT_FLAG_EMISSIVE = 1
+MAT_FLAG_TRANSLUCENT = 2
+MAT_FLAG_THIN_WALLED = 4
+
+# Shade-row logical columns (one slot per row in the port).
+SHP_N0 = 0            # oct snorm16 shading normal, corner 0
+SHP_N1 = 1
+SHP_N2 = 2
+SHP_FACE = 3          # oct snorm16 geometric normal
+SHP_IDS = 4           # mat_id u16 | (instance_id + 1) u16
+SHP_ALB_RG = 5        # albedo r|g f16
+SHP_ALB_BA = 6        # albedo b|a f16
+SHP_EM_RG = 7         # emission r|g f16 (pre-scaled)
+SHP_EM_B_ROUGH = 8    # emission b | roughness f16
+SHP_METAL_IOR = 9     # metallic | ior f16
+SHP_FLAGS = 10        # u32 material flags
+SHP_SEL_PDF = 11      # f32 light selection pdf of this slot
+SHP_AREA = 12         # f32 triangle area
+SHP_PRIM = 13         # i32 source primitive id
+SHP_COLS = 16
+SHP_SUB_REFERENCE = 8  # slots per row in the JAX package's packed table
+
+# Fused light rows (light_slot_rows), dense light-index order.
+LSR_V0 = 0
+LSR_E1 = 3
+LSR_E2 = 6
+LSR_FACE_N = 9
+LSR_EMISSION = 12
+LSR_AREA = 15
+LSR_SELECT_PDF = 16
+LSR_SLOT = 17
+LSR_COLS = 18
+LSR_ALIAS_PROB = 18
+LSR_ALIAS_ROW = 19
+LSR_FUSED_COLS = 37
+
+
+class DeviceMaterials(NamedTuple):
+    albedo_r: torch.Tensor  # f32 [M]
+    albedo_g: torch.Tensor
+    albedo_b: torch.Tensor
+    albedo_a: torch.Tensor
+    emission_r: torch.Tensor  # f32 [M] (pre-scaled by emission_scale)
+    emission_g: torch.Tensor
+    emission_b: torch.Tensor
+    roughness: torch.Tensor
+    metallic: torch.Tensor
+    ior: torch.Tensor
+    flags: torch.Tensor  # i32 [M]: bit0 emissive, bit1 translucent, bit2 thin
+
+
+@dataclass
+class DeviceSky:
+    """Baked sky (DEFAULT) or constant colour; host ints for shapes/modes."""
+
+    mode: int
+    constant_color: torch.Tensor  # f32 [3]
+    sun_dir: torch.Tensor  # f32 [3]
+    env_rows: torch.Tensor  # f32 [He*We, 16]
+    env_h: int
+    env_w: int
+    env_alias_rows: torch.Tensor  # f32 [Kc, 8]
+    env_cell_pdf: torch.Tensor  # f32 [Kc]
+    env_ch: int
+    env_cw: int
+    env_nee_total: float
+    aerial_rows: torch.Tensor  # f32 [NU*NS, 128] (dummy [1, 128] when off)
+    sun_disc_radiance: torch.Tensor  # f32 [3]
+    moon_dir: torch.Tensor  # f32 [3]
+    moon_tex_offset: torch.Tensor  # f32 0-d
+    stars_seed: int
+    stars_count: int
+    stars_intensity: torch.Tensor  # f32 0-d
+
+
+class DeviceSceneGeo(NamedTuple):
+    bvh: DeviceBVH
+    n0: Vec3
+    n1: Vec3
+    n2: Vec3
+    material_id: torch.Tensor  # i32 [P]
+    instance_id: torch.Tensor  # i32 [P]
+    prim_id: torch.Tensor  # i32 [P]
+    face_normal: Vec3
+
+
+class DeviceScene(NamedTuple):
+    geo: DeviceSceneGeo
+    materials: DeviceMaterials
+    sky: DeviceSky
+    lights: DeviceLights
+    shade_hot: torch.Tensor  # i32 [P, SHP_COLS]
+    light_slot_rows: torch.Tensor  # f32 [L, 37]
+    ggx_quad: torch.Tensor  # f32 [32*32, 4] energy-LUT quads
+
+
+# ---- shade-row decoders (consumed by render/wavefront.py) ----
+
+def unpack_f16_pair(bits_i32: torch.Tensor):
+    """i32 of two f16 halves → (lo, hi) f32."""
+    lo = (bits_i32 & 0xFFFF).to(torch.int16)
+    hi = ((bits_i32 >> 16) & 0xFFFF).to(torch.int16)
+    return (lo.view(torch.float16).to(torch.float32),
+            hi.view(torch.float16).to(torch.float32))
+
+
+def unpack_oct_snorm16(bits_i32: torch.Tensor):
+    """Octahedral snorm16 pair → unit direction components (x, y, z)."""
+    u = ((bits_i32 << 16) >> 16).to(torch.float32) * (1.0 / 32767.0)
+    v = (bits_i32 >> 16).to(torch.float32) * (1.0 / 32767.0)
+    y = 1.0 - torch.abs(u) - torch.abs(v)
+    neg = y < 0.0
+    sx = torch.where(u >= 0.0, 1.0, -1.0)
+    sz = torch.where(v >= 0.0, 1.0, -1.0)
+    x = torch.where(neg, (1.0 - torch.abs(v)) * sx, u)
+    z = torch.where(neg, (1.0 - torch.abs(u)) * sz, v)
+    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-12))
+    return x * inv, y * inv, z * inv
+
+
+# ---- host packing (numpy) ----
+
+def _f16_pair_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    l16 = lo.astype(np.float16).view(np.uint16).astype(np.uint32)
+    h16 = hi.astype(np.float16).view(np.uint16).astype(np.uint32)
+    return (l16 | (h16 << 16)).view(np.int32)
+
+
+def _oct_snorm16_np(n: np.ndarray) -> np.ndarray:
+    """Unit vectors [K, 3] → octahedral snorm16 pair i32."""
+    a = np.abs(n).sum(axis=-1, keepdims=True)
+    v = n / np.maximum(a, 1e-12)
+    uv = v[..., [0, 2]].copy()
+    neg = v[..., 1] < 0.0
+    flip = (1.0 - np.abs(uv[..., ::-1])) * np.where(uv >= 0.0, 1.0, -1.0)
+    uv[neg] = flip[neg]
+    q = np.clip(np.round(uv * 32767.0), -32767, 32767).astype(np.int32)
+    return ((q[..., 0] & 0xFFFF) | (q[..., 1] << 16)).astype(np.int32)
+
+
+def _euler_to_matrix(rotation) -> np.ndarray:
+    rx, ry, rz = rotation
+    cr, sr = np.cos(rx * 0.5), np.sin(rx * 0.5)
+    cp, sp = np.cos(ry * 0.5), np.sin(ry * 0.5)
+    cy, sy = np.cos(rz * 0.5), np.sin(rz * 0.5)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ],
+        dtype=np.float32,
+    )
+
+
+def flatten_instances(scene: Scene):
+    """World-space triangle soup over all active instances (numpy) →
+    (corners [T,3,3], normals [T,3,3], mat [T], inst [T], prim [T])."""
+    corners_l, normals_l, mats_l, insts_l, prims_l = [], [], [], [], []
+    for inst in scene.instances:
+        if not inst.active or inst.mesh_id >= len(scene.meshes):
+            continue
+        mesh = scene.meshes[inst.mesh_id]
+        if mesh.num_triangles == 0:
+            continue
+        rot = _euler_to_matrix(inst.rotation)
+        scale = np.asarray(inst.scale, np.float32)
+        pos = np.asarray(inst.position, np.float32)
+        c = mesh.corner_positions() * scale
+        c = c @ rot.T + pos
+        n = mesh.normals / np.maximum(scale, 1e-20)
+        n = n @ rot.T
+        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+        corners_l.append(c.astype(np.float32))
+        normals_l.append(n.astype(np.float32))
+        mats_l.append(mesh.material_ids.astype(np.int32))
+        insts_l.append(np.full(mesh.num_triangles, inst.id, np.int32))
+        prims_l.append(np.arange(mesh.num_triangles, dtype=np.int32))
+    if not corners_l:
+        z = np.zeros((0, 3, 3), np.float32)
+        e = np.zeros(0, np.int32)
+        return z, z.copy(), e, e.copy(), e.copy()
+    return (np.concatenate(corners_l), np.concatenate(normals_l),
+            np.concatenate(mats_l), np.concatenate(insts_l),
+            np.concatenate(prims_l))
+
+
+class HostGeometry(NamedTuple):
+    """Leaf-slot-ordered geometry in numpy, before upload."""
+
+    wide: object
+    v0: np.ndarray  # [P, 3]
+    e1: np.ndarray
+    e2: np.ndarray
+    normals: np.ndarray  # [P, 3, 3] corner shading normals
+    face_normal: np.ndarray  # [P, 3]
+    material_id: np.ndarray  # i32 [P]
+    instance_id: np.ndarray
+    prim_id: np.ndarray
+
+
+def pack_geometry_np(scene: Scene) -> HostGeometry:
+    """Flatten, build the 16-wide BVH (native C++ builder) and lay every
+    per-triangle attribute out in leaf-slot order."""
+    corners, normals, mats, insts, prims = flatten_instances(scene)
+    t = corners.shape[0]
+    wide = build_wide_native(corners)
+    info_message("BVH16 built: %d tris, %d wide nodes, %d leaf blocks, depth %d",
+                 t, wide.num_nodes, wide.num_blocks, wide.depth)
+
+    order = wide.tri_order
+    p = order.shape[0]
+    valid = order >= 0
+    safe = np.where(valid, order, 0)
+
+    def slotify(arr, pad_value=0.0):
+        out = arr[safe].copy()
+        out[~valid] = pad_value
+        return out
+
+    c = slotify(corners) if t else np.zeros((p, 3, 3), np.float32)
+    v0 = c[:, 0]
+    e1 = c[:, 1] - c[:, 0]
+    e2 = c[:, 2] - c[:, 0]
+    v0[~valid] = 0.0
+    e1[~valid] = 0.0
+    e2[~valid] = 0.0
+    fn = np.cross(e1, e2)
+    fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+    slot_n = slotify(normals) if t else np.zeros((p, 3, 3), np.float32)
+    return HostGeometry(
+        wide=wide, v0=v0, e1=e1, e2=e2, normals=slot_n,
+        face_normal=fn.astype(np.float32),
+        material_id=np.where(valid, mats[safe] if t else 0, 0).astype(np.int32),
+        instance_id=np.where(valid, insts[safe] if t else 0, -1).astype(np.int32),
+        prim_id=np.where(valid, prims[safe] if t else 0, -1).astype(np.int32),
+    )
+
+
+def _refuse_cutouts(scene: Scene) -> None:
+    for m in scene.materials:
+        if float(m.albedo[3]) < 1.0:
+            raise NotImplementedError(
+                "cutout (alpha < 1) materials are not ported yet")
+
+
+def _t(a, device, dtype=None):
+    """Upload a host array (always a private copy: packed numpy tables may
+    be read-only views)."""
+    return torch.as_tensor(np.array(a, dtype=dtype, copy=True, order="C"),
+                           device=device)
+
+
+def _v3(a, device) -> Vec3:
+    return Vec3(_t(a[..., 0], device), _t(a[..., 1], device), _t(a[..., 2], device))
+
+
+def upload_geometry(hg: HostGeometry, device) -> DeviceSceneGeo:
+    return DeviceSceneGeo(
+        bvh=pack_device_bvh(hg.wide, hg.v0, hg.e1, hg.e2, device),
+        n0=_v3(hg.normals[:, 0], device),
+        n1=_v3(hg.normals[:, 1], device),
+        n2=_v3(hg.normals[:, 2], device),
+        material_id=_t(hg.material_id, device),
+        instance_id=_t(hg.instance_id, device),
+        prim_id=_t(hg.prim_id, device),
+        face_normal=_v3(hg.face_normal, device),
+    )
+
+
+def materials_np(scene: Scene) -> dict:
+    """Material table as numpy arrays (DeviceMaterials fields)."""
+    mats = scene.materials or [Material()]
+    flags = np.zeros(len(mats), np.int32)
+    for i, mat in enumerate(mats):
+        f = 0
+        if mat.emission_active:
+            f |= MAT_FLAG_EMISSIVE
+        if mat.base_substrate == MaterialBaseSubstrate.TRANSLUCENT:
+            f |= MAT_FLAG_TRANSLUCENT
+        if mat.thin_walled:
+            f |= MAT_FLAG_THIN_WALLED
+        flags[i] = f
+    albedo = np.asarray([mat.albedo for mat in mats], np.float32)
+    emission = np.asarray(
+        [np.asarray(mat.emission) * mat.emission_scale for mat in mats], np.float32)
+    return dict(
+        albedo_r=albedo[:, 0].copy(), albedo_g=albedo[:, 1].copy(),
+        albedo_b=albedo[:, 2].copy(), albedo_a=albedo[:, 3].copy(),
+        emission_r=emission[:, 0].copy(), emission_g=emission[:, 1].copy(),
+        emission_b=emission[:, 2].copy(),
+        roughness=np.asarray([mat.roughness for mat in mats], np.float32),
+        metallic=np.asarray([1.0 if mat.metallic else 0.0 for mat in mats], np.float32),
+        ior=np.asarray([mat.refraction_index for mat in mats], np.float32),
+        flags=flags,
+    )
+
+
+def pack_lights_for(hg: HostGeometry, mats: dict) -> dict:
+    """Emissive-triangle light set over the packed geometry (numpy fields)."""
+    emission = np.stack([mats["emission_r"], mats["emission_g"],
+                         mats["emission_b"]], axis=-1)
+    return pack_lights_np(
+        tri_v0=hg.v0, tri_e1=hg.e1, tri_e2=hg.e2,
+        material_id=hg.material_id, emission=emission,
+        emissive_flags=(mats["flags"] & MAT_FLAG_EMISSIVE) != 0,
+        valid_slot=hg.prim_id >= 0)
+
+
+def pack_light_slot_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
+    """Compact fused light rows [L, 37]: cols 0:18 the light's block, col 18
+    its alias acceptance probability, cols 19:37 its alias partner's block."""
+    slots = np.asarray(lights["slot"]).astype(np.int64)
+    l = max(len(slots), 1)
+    if int(lights["num_lights"]) == 0:
+        return np.zeros((l, LSR_FUSED_COLS), np.float32)
+    base = np.zeros((l, LSR_COLS), np.float32)
+    s = slots
+    base[:, LSR_V0:LSR_V0 + 3] = hg.v0[s]
+    base[:, LSR_E1:LSR_E1 + 3] = hg.e1[s]
+    base[:, LSR_E2:LSR_E2 + 3] = hg.e2[s]
+    base[:, LSR_FACE_N:LSR_FACE_N + 3] = hg.face_normal[s]
+    m = hg.material_id.astype(np.int64)[s]
+    base[:, LSR_EMISSION + 0] = mats["emission_r"][m]
+    base[:, LSR_EMISSION + 1] = mats["emission_g"][m]
+    base[:, LSR_EMISSION + 2] = mats["emission_b"][m]
+    base[:, LSR_AREA] = lights["slot_area"][s]
+    base[:, LSR_SELECT_PDF] = lights["select_pdf"]
+    base[:, LSR_SLOT] = s.astype(np.int32).view(np.float32)
+    alias = np.asarray(lights["alias"]).astype(np.int64)
+    rows = np.zeros((l, LSR_FUSED_COLS), np.float32)
+    rows[:, :LSR_COLS] = base
+    rows[:, LSR_ALIAS_PROB] = lights["prob"]
+    rows[:, LSR_ALIAS_ROW:LSR_ALIAS_ROW + LSR_COLS] = base[alias]
+    return rows
+
+
+def pack_shade_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
+    """Per-slot shade rows [P, SHP_COLS] i32 (one slot per row); every word
+    equals the reference's packed word for that slot."""
+    p = hg.material_id.shape[0]
+    mat = hg.material_id.astype(np.int64)
+    inst = hg.instance_id.astype(np.int64)
+    ids = ((mat & 0xFFFF) | (((inst + 1) & 0xFFFF) << 16)).astype(np.uint32)
+
+    def f32(v):
+        return np.asarray(v, np.float32).view(np.int32)
+
+    out = np.zeros((p, SHP_COLS), np.int32)
+    out[:, SHP_N0] = _oct_snorm16_np(hg.normals[:, 0])
+    out[:, SHP_N1] = _oct_snorm16_np(hg.normals[:, 1])
+    out[:, SHP_N2] = _oct_snorm16_np(hg.normals[:, 2])
+    out[:, SHP_FACE] = _oct_snorm16_np(hg.face_normal)
+    out[:, SHP_IDS] = ids.view(np.int32)
+    out[:, SHP_ALB_RG] = _f16_pair_np(mats["albedo_r"][mat], mats["albedo_g"][mat])
+    out[:, SHP_ALB_BA] = _f16_pair_np(mats["albedo_b"][mat], mats["albedo_a"][mat])
+    out[:, SHP_EM_RG] = _f16_pair_np(mats["emission_r"][mat], mats["emission_g"][mat])
+    out[:, SHP_EM_B_ROUGH] = _f16_pair_np(mats["emission_b"][mat], mats["roughness"][mat])
+    out[:, SHP_METAL_IOR] = _f16_pair_np(mats["metallic"][mat], mats["ior"][mat])
+    out[:, SHP_FLAGS] = mats["flags"][mat].astype(np.int32)
+    out[:, SHP_SEL_PDF] = f32(lights["slot_select_pdf"])
+    out[:, SHP_AREA] = f32(lights["slot_area"])
+    out[:, SHP_PRIM] = hg.prim_id.astype(np.int32)
+    return out
+
+
+def sun_direction(azimuth: float, altitude: float) -> np.ndarray:
+    return np.array(
+        [np.cos(azimuth) * np.cos(altitude), np.sin(altitude),
+         np.sin(azimuth) * np.cos(altitude)], dtype=np.float32)
+
+
+def env_to_rows(env: np.ndarray) -> np.ndarray:
+    """Lat-long env [H, W, 3] → bilinear-quad rows [H*W, 16]."""
+    h, w = env.shape[:2]
+    rows = np.zeros((h * w, 16), np.float32)
+    rows[:, 0:3] = env.reshape(-1, 3)
+    rows[:, 4:7] = np.roll(env, -1, axis=1).reshape(-1, 3)
+    dn = env[np.minimum(np.arange(h) + 1, h - 1)]
+    rows[:, 8:11] = dn.reshape(-1, 3)
+    rows[:, 12:15] = np.roll(dn, -1, axis=1).reshape(-1, 3)
+    return rows
+
+
+def _build_env_nee(env: np.ndarray, is_constant: bool):
+    """Cell-grid importance distribution over the baked env map (built
+    always, as in the reference; env NEE itself is an HDRI-only strategy)."""
+    h, w = env.shape[0], env.shape[1]
+    ch = int(min(64, max(h, 1)))
+    cw = int(min(128, max(w, 1)))
+    empty = (np.zeros((1, 8), np.float32), np.zeros((1,), np.float32), 1, 1, 0.0)
+    if is_constant or h < 4:
+        return empty
+    lum = (0.2126 * env[..., 0] + 0.7152 * env[..., 1]
+           + 0.0722 * env[..., 2]).astype(np.float64)
+    ys = (np.arange(h) * ch // h).clip(0, ch - 1)
+    xs = (np.arange(w) * cw // w).clip(0, cw - 1)
+    cell_sum = np.zeros((ch, cw), np.float64)
+    cell_cnt = np.zeros((ch, cw), np.float64)
+    np.add.at(cell_sum, (ys[:, None], xs[None, :]), lum * np.ones((1, w)))
+    np.add.at(cell_cnt, (ys[:, None], xs[None, :]), np.ones((h, w)))
+    cell_mean = cell_sum / np.maximum(cell_cnt, 1.0)
+    theta = np.linspace(0.0, np.pi, ch + 1)
+    band = np.cos(theta[:-1]) - np.cos(theta[1:])
+    omega = (2.0 * np.pi / cw) * band[:, None] * np.ones((1, cw))
+    weight = (cell_mean * omega).reshape(-1)
+    total = float(weight.sum())
+    if total <= 0.0:
+        return empty
+    p_cell = weight / total
+    pdf_sr = (p_cell / np.maximum(omega.reshape(-1), 1e-12)).astype(np.float32)
+    prob, alias = build_alias_table(weight)
+    k = weight.shape[0]
+    rows = np.zeros((k, 8), np.float32)
+    rows[:, 0] = prob
+    rows[:, 1] = np.arange(k, dtype=np.int32).view(np.float32)
+    rows[:, 2] = pdf_sr
+    rows[:, 3] = alias.astype(np.int32).view(np.float32)
+    rows[:, 4] = pdf_sr[alias]
+    return rows, pdf_sr, ch, cw, total
+
+
+def pack_sky(scene: Scene, device) -> DeviceSky:
+    """Atmosphere LUTs + environment and aerial bakes, in PyTorch on
+    ``device`` (DEFAULT mode); CONSTANT_COLOR packs an empty map."""
+    from ..ops.atmosphere import (
+        atmo_params_from_sky, bake_aerial_rows, bake_sky_envmap,
+        build_multiscatter_lut, build_transmittance_lut,
+        sample_transmittance_lut,
+    )
+    from ..ops.sky import SUN_IRRADIANCE, SUN_RADIANCE
+
+    sky = scene.sky
+    mode = int(sky.mode)
+    sun_dir = sun_direction(sky.azimuth, sky.altitude)
+    is_constant = mode == 2
+    w = max(128, min(1024, 2 * scene.settings.width))
+    env_res = (w // 2, w)
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    aerial = torch.zeros((1, 128), dtype=torch.float32, device=device)
+    if is_constant:
+        env = np.zeros((4, 8, 3), np.float32)
+        sun_disc = f32(np.zeros(3))
+    else:
+        p = atmo_params_from_sky(sky, device)
+        sun_dir_t = f32(sun_dir)
+        t_lut = build_transmittance_lut(p)
+        ms_lut = build_multiscatter_lut(p, t_lut)
+        h_obs = f32(max(float(sky.geometry_offset[1]), 0.001))
+        sun_irr = f32(SUN_IRRADIANCE * sky.sun_strength)
+        env_t = bake_sky_envmap(
+            p, t_lut, ms_lut, h_obs, sun_dir_t, sun_irr,
+            width=env_res[1], height=env_res[0],
+            steps=int(min(max(sky.steps, 8), 64)))
+        sun_t = sample_transmittance_lut(t_lut, h_obs, sun_dir_t[1])
+        sun_disc = sun_t * f32(SUN_RADIANCE * sky.sun_strength)
+        env = env_t.cpu().numpy()
+        if getattr(scene.settings, "aerial_perspective", True):
+            aerial = bake_aerial_rows(p, t_lut, ms_lut, h_obs, sun_dir_t, sun_irr)
+
+    alias_rows, cell_pdf, ch, cw, nee_total = _build_env_nee(env, is_constant)
+    return DeviceSky(
+        mode=mode,
+        constant_color=f32(sky.constant_color),
+        sun_dir=f32(sun_dir),
+        env_rows=_t(env_to_rows(env), device),
+        env_h=int(env.shape[0]),
+        env_w=int(env.shape[1]),
+        env_alias_rows=_t(alias_rows, device),
+        env_cell_pdf=_t(cell_pdf, device),
+        env_ch=int(ch),
+        env_cw=int(cw),
+        env_nee_total=float(np.float32(nee_total)),
+        aerial_rows=aerial,
+        sun_disc_radiance=sun_disc,
+        moon_dir=f32(sun_direction(sky.moon_azimuth, sky.moon_altitude)),
+        moon_tex_offset=f32(sky.moon_tex_offset),
+        stars_seed=int(sky.stars_seed),
+        stars_count=int(sky.stars_count),
+        stars_intensity=f32(sky.stars_intensity),
+    )
+
+
+def check_scene_supported(scene: Scene) -> None:
+    """Raise NotImplementedError for scene features this slice lacks."""
+    if len(scene.textures):
+        raise NotImplementedError("textures are not ported yet")
+    if scene.ocean.active or scene.particles.active:
+        raise NotImplementedError("the ocean and particles are not ported yet")
+    if int(scene.sky.mode) not in (0, 2):
+        raise NotImplementedError("only DEFAULT and CONSTANT_COLOR skies are ported")
+    _refuse_cutouts(scene)
+
+
+def pack_scene(scene: Scene, device=None) -> DeviceScene:
+    """Full scene pack on ``device`` (refusing unported features); None
+    means the card, and raises without one."""
+    device = resolve_device(device)
+    check_scene_supported(scene)
+    hg = pack_geometry_np(scene)
+    mats = materials_np(scene)
+    lights = pack_lights_for(hg, mats)
+    return DeviceScene(
+        geo=upload_geometry(hg, device),
+        materials=DeviceMaterials(**{k: _t(v, device) for k, v in mats.items()}),
+        sky=pack_sky(scene, device),
+        lights=lights_to_device(lights, device),
+        shade_hot=_t(pack_shade_rows(hg, mats, lights), device),
+        light_slot_rows=_t(pack_light_slot_rows(hg, mats, lights), device),
+        ggx_quad=_t(ggx_energy_quad(), device),
+    )
+
+
+def unpack_reference_shade_rows(packed: np.ndarray, p: int) -> np.ndarray:
+    """The reference's [ceil(P/8), 128] interleaved table (slot s at
+    [s >> 3, c * 8 + (s & 7)]) → one slot per row [P, 16]."""
+    r = packed.shape[0]
+    sub = SHP_SUB_REFERENCE
+    n_cols = packed.shape[1] // sub
+    return (np.asarray(packed).reshape(r, n_cols, sub).transpose(0, 2, 1)
+            .reshape(r * sub, n_cols)[:p].astype(np.int32))
+
+
+def from_jax_arrays(tree: dict, device):
+    """The JAX package's DeviceScene and DeviceCamera, flattened to nested
+    dicts of numpy arrays and numbers (``tree["scene"]``, ``tree["camera"]``,
+    field names as in the reference), → the port's (DeviceScene,
+    DeviceCamera). The interleaved shade table becomes one slot per row;
+    depth and num_nodes are kept."""
+    from ..ops.camera import DeviceCamera
+
+    s = tree["scene"]
+    g = s["geo"]
+    b = g["bvh"]
+
+    def v3(x):
+        return Vec3(*(_t(np.asarray(c, np.float32), device) for c in x))
+
+    bvh = DeviceBVH(
+        rows=_t(np.asarray(b["rows"], np.float32), device),
+        tri_v0=v3(b["tri_v0"]), tri_e1=v3(b["tri_e1"]), tri_e2=v3(b["tri_e2"]),
+        dense_tris=(None if b["dense_tris"] is None
+                    else _t(np.asarray(b["dense_tris"], np.float32), device)),
+        dense_slot=(None if b["dense_slot"] is None
+                    else _t(np.asarray(b["dense_slot"], np.int32), device)),
+        bounds=_t(np.asarray(b["bounds"], np.float32), device),
+        depth=int(b["depth"]), num_nodes=int(b["num_nodes"]),
+    )
+    p = int(np.asarray(g["material_id"]).shape[0])
+    geo = DeviceSceneGeo(
+        bvh=bvh, n0=v3(g["n0"]), n1=v3(g["n1"]), n2=v3(g["n2"]),
+        material_id=_t(np.asarray(g["material_id"], np.int32), device),
+        instance_id=_t(np.asarray(g["instance_id"], np.int32), device),
+        prim_id=_t(np.asarray(g["prim_id"], np.int32), device),
+        face_normal=v3(g["face_normal"]),
+    )
+    m = s["materials"]
+    mats = DeviceMaterials(**{
+        k: _t(np.asarray(m[k]).astype(np.int32 if k == "flags" else np.float32),
+              device)
+        for k in DeviceMaterials._fields})
+    k = s["sky"]
+
+    def f32(v):
+        return _t(np.asarray(v, np.float32), device)
+
+    sky = DeviceSky(
+        mode=int(k["mode"]), constant_color=f32(k["constant_color"]),
+        sun_dir=f32(k["sun_dir"]), env_rows=f32(k["env_rows"]),
+        env_h=int(k["env_h"]), env_w=int(k["env_w"]),
+        env_alias_rows=f32(k["env_alias_rows"]),
+        env_cell_pdf=f32(k["env_cell_pdf"]), env_ch=int(k["env_ch"]),
+        env_cw=int(k["env_cw"]), env_nee_total=float(k["env_nee_total"]),
+        aerial_rows=f32(k["aerial_rows"]),
+        sun_disc_radiance=f32(k["sun_disc_radiance"]),
+        moon_dir=f32(k["moon_dir"]), moon_tex_offset=f32(k["moon_tex_offset"]),
+        stars_seed=int(k["stars_seed"]), stars_count=int(k["stars_count"]),
+        stars_intensity=f32(k["stars_intensity"]),
+    )
+    li = s["lights"]
+    lights = lights_to_device(dict(
+        prob=np.asarray(li["prob"], np.float32),
+        alias=np.asarray(li["alias"], np.int32),
+        slot=np.asarray(li["slot"], np.int32),
+        select_pdf=np.asarray(li["select_pdf"], np.float32),
+        slot_select_pdf=np.asarray(li["slot_select_pdf"], np.float32),
+        slot_area=np.asarray(li["slot_area"], np.float32),
+        num_lights=int(li["num_lights"]),
+        total_power=float(li["total_power"]),
+        tree_rows=np.asarray(li["tree_rows"], np.float32),
+        tree_num_nodes=int(li["tree_num_nodes"]),
+        tree_levels=int(li["tree_levels"]),
+    ), device)
+    scene = DeviceScene(
+        geo=geo, materials=mats, sky=sky, lights=lights,
+        shade_hot=_t(unpack_reference_shade_rows(
+            np.asarray(s["shade_hot"]), p), device),
+        light_slot_rows=f32(s["light_slot_rows"]),
+        ggx_quad=_t(ggx_energy_quad(), device),
+    )
+    c = tree["camera"]
+    cam = DeviceCamera(
+        pos=f32(c["pos"]), rotation_q=f32(c["rotation_q"]), fov=f32(c["fov"]),
+        aperture_size=f32(c["aperture_size"]),
+        aperture_blade_count=_t(c["aperture_blade_count"], device, np.int32),
+        aperture_shape_bladed=_t(c["aperture_shape_bladed"], device, np.bool_),
+        object_distance=f32(c["object_distance"]),
+        camera_scale=f32(c["camera_scale"]),
+    )
+    return scene, cam

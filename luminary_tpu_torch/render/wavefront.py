@@ -1,0 +1,502 @@
+"""The wavefront path-tracing integrator (port of
+``luminary_tpu/render/wavefront.py``, main-path branches).
+
+One lane per pixel, flat ``[N]`` SoA state. Each depth traces the wavefront
+(kernel B), fetches one shade row per hit (kernel A; per-field gathers for
+tables up to SMALL_TABLE_SLOTS), shades GGX/Lambert/dielectric lobes, runs
+sun NEE with sun RIS and triangle-light NEE with RIS (candidate 0 from the
+light tree, kernel C, in many-light scenes), traces every shadow ray in one
+batched any-hit walk, adds aerial perspective on hit segments and evaluates
+the sky once after the loop for the recorded misses.
+
+Branches of the reference that this slice does not port (fog and bridges,
+water, clouds, textures, spectral, the physical camera, env NEE, particles,
+the analytic ocean, wavefront sorting, debug shading) are refused by the
+Renderer rather than stubbed. With no fog and no water their terms in the
+reference are exact identities (transmittance 1, no collisions), so leaving
+them out changes no value.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.camera import DeviceCamera, generate_camera_rays
+from ..ops.intersect import MISS_DIST
+from ..ops.light_tree import sample_light_tree
+from ..ops.lights import light_pdf_from_row, mis_balance, sample_light_point
+from ..ops.material import (
+    LaneMaterial,
+    frame_eval,
+    make_frame,
+    material_sample,
+    medium_below_ior,
+    medium_pop,
+    medium_push,
+    medium_top_ior,
+)
+from ..ops.random import RandomTarget, blue_base, random_1d
+from ..ops.rowops import gather_packed_planar
+from ..ops.sky import (
+    SUN_COS_RADIUS,
+    SUN_SOLID_ANGLE,
+    aerial_fetch,
+    sky_radiance,
+    sun_dir_vec,
+    sun_solid_angle_radiance,
+)
+from ..ops.traverse import trace_closest, trace_occluded
+from ..ops.vec import Vec3, dot, gather as vgather, normalize, vwhere
+from ..ops.wavefront_utils import sample_sun_direction
+from .device_scene import (
+    MAT_FLAG_EMISSIVE,
+    MAT_FLAG_THIN_WALLED,
+    MAT_FLAG_TRANSLUCENT,
+    SHP_ALB_BA,
+    SHP_ALB_RG,
+    SHP_AREA,
+    SHP_COLS,
+    SHP_EM_B_ROUGH,
+    SHP_EM_RG,
+    SHP_FACE,
+    SHP_FLAGS,
+    SHP_METAL_IOR,
+    SHP_N0,
+    SHP_N1,
+    SHP_N2,
+    SHP_SEL_PDF,
+    DeviceScene,
+    unpack_f16_pair,
+    unpack_oct_snorm16,
+)
+
+
+class RenderConfig(NamedTuple):
+    """Static per-render configuration (the ported subset of the
+    reference's RenderConfig, same field names; the whole wavefront is
+    traced in one launch, so there is no trace chunk)."""
+
+    width: int
+    height: int
+    max_depth: int
+    ris_candidates: int = 4
+    blue_noise: bool = True
+    aerial: bool = False
+    sun_ris: bool = False
+
+
+_RAY_EPS = 1e-3
+SMALL_TABLE_SLOTS = 2048  # up to this many slots, per-field gathers
+# f32 1/Omega_sun, as the reference computes it
+_INV_SUN_SOLID_ANGLE = float(np.float32(1.0) / np.float32(SUN_SOLID_ANGLE))
+
+
+def _flip_normals(ns: Vec3, ng_raw: Vec3, direction: Vec3):
+    flip_in = dot(ng_raw, direction)
+    s_g = torch.where(flip_in > 0.0, -1.0, 1.0)
+    ng = Vec3(ng_raw.x * s_g, ng_raw.y * s_g, ng_raw.z * s_g)
+    s_n = torch.sign(dot(ns, ng))
+    s_n = torch.where(s_n == 0.0, 1.0, s_n)
+    ns = Vec3(ns.x * s_n, ns.y * s_n, ns.z * s_n)
+    return ns, ng, ng_raw
+
+
+def _shading_normal(geo, slot, direction: Vec3, u, v):
+    """Interpolated shading normal + geometric normal (both flipped toward
+    the incoming ray) + the unflipped face normal, from per-slot tables."""
+    n0 = vgather(geo.n0, slot)
+    n1 = vgather(geo.n1, slot)
+    n2 = vgather(geo.n2, slot)
+    w = 1.0 - u - v
+    ns = normalize(Vec3(
+        n0.x * w + n1.x * u + n2.x * v,
+        n0.y * w + n1.y * u + n2.y * v,
+        n0.z * w + n1.z * u + n2.z * v,
+    ))
+    return _flip_normals(ns, vgather(geo.face_normal, slot), direction)
+
+
+def _shading_normal_packed(srow, direction: Vec3, u, v):
+    """_shading_normal reading planar shade rows [SHP_COLS, N] i32."""
+    w = 1.0 - u - v
+    n0x, n0y, n0z = unpack_oct_snorm16(srow[SHP_N0])
+    n1x, n1y, n1z = unpack_oct_snorm16(srow[SHP_N1])
+    n2x, n2y, n2z = unpack_oct_snorm16(srow[SHP_N2])
+    ns = normalize(Vec3(
+        n0x * w + n1x * u + n2x * v,
+        n0y * w + n1y * u + n2y * v,
+        n0z * w + n1z * u + n2z * v,
+    ))
+    fx, fy, fz = unpack_oct_snorm16(srow[SHP_FACE])
+    return _flip_normals(ns, Vec3(fx, fy, fz), direction)
+
+
+def _gather_material(mats, mat_id) -> LaneMaterial:
+    flags = mats.flags[mat_id]
+    return LaneMaterial(
+        albedo_r=mats.albedo_r[mat_id],
+        albedo_g=mats.albedo_g[mat_id],
+        albedo_b=mats.albedo_b[mat_id],
+        roughness=mats.roughness[mat_id],
+        metallic=mats.metallic[mat_id],
+        ior=mats.ior[mat_id],
+        translucent=(flags & MAT_FLAG_TRANSLUCENT) != 0,
+        opacity=mats.albedo_a[mat_id],
+        thin_walled=(flags & MAT_FLAG_THIN_WALLED) != 0,
+    )
+
+
+def _lum(r, g, b):
+    return 0.2126 * r + 0.7152 * g + 0.0722 * b
+
+
+def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
+                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, sample_id):
+    """Trace one full sample for the pixel wavefront → (radiance [N, 3],
+    rays_traced 0-d f32: closest rays per depth + sun and light shadow rays,
+    the accounting of ``bench.py``)."""
+    geo = scene.geo
+    mats = scene.materials
+    lights = scene.lights
+    sky = scene.sky
+    dev = pixel_x.device
+    n = pixel_x.shape[0]
+    pixel_id = (pixel_y.to(torch.int64) * config.width
+                + pixel_x.to(torch.int64)) & 0xFFFFFFFF
+    sample_id = torch.as_tensor(int(sample_id) & 0xFFFFFFFF, dtype=torch.int64,
+                                device=dev)
+    bn = blue_base(pixel_x, pixel_y) if config.blue_noise else None
+
+    origin, direction = generate_camera_rays(
+        cam, config.width, config.height, pixel_x, pixel_y, pixel_id,
+        sample_id, bn=bn)
+
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    false = torch.zeros(n, dtype=torch.bool, device=dev)
+    rad_r, rad_g, rad_b = zeros, zeros, zeros
+    thr_r, thr_g, thr_b = ones, ones, ones
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
+    prev_pdf = zeros
+    prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
+    medium = torch.zeros(n, dtype=torch.int64, device=dev)
+    miss_dir = Vec3(zeros, zeros, zeros)
+    miss_thr_r, miss_thr_g, miss_thr_b = zeros, zeros, zeros
+    miss_sun_weight = zeros
+    ever_missed = false
+    prev_sun_nee = false
+    prev_sun2 = false
+    prev_light_nee = false
+
+    sun_radiance = sun_solid_angle_radiance(sky)  # f32 [3]
+    sun_rad3 = (sun_radiance[0], sun_radiance[1], sun_radiance[2])
+    sun_v = sun_dir_vec(sky)
+    use_rows = geo.material_id.shape[0] > SMALL_TABLE_SLOTS
+    sun_up = sky.sun_dir[1] > -0.1  # 0-d bool
+    sky_has_sun = int(sky.mode) != 2
+
+    for depth in range(config.max_depth):
+        rays_traced = rays_traced + active.to(torch.float32).sum()
+        hit = trace_closest(geo.bvh, origin, direction, active=active)
+        hit_valid = hit.valid
+        missed = active & ~hit_valid
+        hit_lane = active & hit_valid
+        seg_len = torch.where(hit_valid, hit.t, 1e7)
+
+        # ---- aerial perspective on segments that end on geometry ----
+        if config.aerial:
+            ends_here = active & hit_valid
+            (atr_r, atr_g, atr_b), (ain_r, ain_g, ain_b) = aerial_fetch(
+                sky, direction, seg_len * 1e-3)  # world m → km
+            on = ends_here.to(torch.float32)
+            rad_r = rad_r + thr_r * ain_r * on
+            rad_g = rad_g + thr_g * ain_g * on
+            rad_b = rad_b + thr_b * ain_b * on
+            thr_r = thr_r * torch.where(ends_here, atr_r, 1.0)
+            thr_g = thr_g * torch.where(ends_here, atr_g, 1.0)
+            thr_b = thr_b * torch.where(ends_here, atr_b, 1.0)
+
+        # ---- record the miss (sky evaluated once after the loop) ----
+        den_sun = (_INV_SUN_SOLID_ANGLE
+                   + prev_pdf * (1.0 + prev_sun2.to(torch.float32)))
+        w_sun = torch.where(prev_delta | ~prev_sun_nee, 1.0, prev_pdf / den_sun)
+        miss_dir = vwhere(missed, direction, miss_dir)
+        miss_thr_r = torch.where(missed, thr_r, miss_thr_r)
+        miss_thr_g = torch.where(missed, thr_g, miss_thr_g)
+        miss_thr_b = torch.where(missed, thr_b, miss_thr_b)
+        miss_sun_weight = torch.where(missed, w_sun, miss_sun_weight)
+        ever_missed = ever_missed | missed
+        active = hit_lane
+
+        # ---- hit context: one shade-row gather (big tables) or per-field
+        # gathers (small tables) ----
+        slot = torch.where(hit_lane, hit.slot, 0)
+        t_safe = torch.where(hit_lane, hit.t, 1.0)
+        hit_pos = Vec3(origin.x + direction.x * t_safe,
+                       origin.y + direction.y * t_safe,
+                       origin.z + direction.z * t_safe)
+        if use_rows:
+            srow = gather_packed_planar(scene.shade_hot, slot, SHP_COLS)
+            mat_flags = srow[SHP_FLAGS]
+            ns, ng, ng_raw = _shading_normal_packed(srow, direction, hit.u, hit.v)
+            alb_r, alb_g = unpack_f16_pair(srow[SHP_ALB_RG])
+            alb_b, alb_a = unpack_f16_pair(srow[SHP_ALB_BA])
+            em_r, em_g = unpack_f16_pair(srow[SHP_EM_RG])
+            em_b, rough = unpack_f16_pair(srow[SHP_EM_B_ROUGH])
+            metal, ior = unpack_f16_pair(srow[SHP_METAL_IOR])
+            lane_mat = LaneMaterial(
+                albedo_r=alb_r, albedo_g=alb_g, albedo_b=alb_b,
+                roughness=rough, metallic=metal, ior=ior,
+                translucent=(mat_flags & MAT_FLAG_TRANSLUCENT) != 0,
+                opacity=alb_a,
+                thin_walled=(mat_flags & MAT_FLAG_THIN_WALLED) != 0,
+            )
+            nee_sel_pdf = srow[SHP_SEL_PDF].view(torch.float32)
+            nee_area = srow[SHP_AREA].view(torch.float32)
+        else:
+            sl = slot.long()
+            mat_id = geo.material_id[sl].long()
+            mat_flags = mats.flags[mat_id]
+            ns, ng, ng_raw = _shading_normal(geo, sl, direction, hit.u, hit.v)
+            lane_mat = _gather_material(mats, mat_id)
+            em_r = mats.emission_r[mat_id]
+            em_g = mats.emission_g[mat_id]
+            em_b = mats.emission_b[mat_id]
+            nee_sel_pdf = lights.slot_select_pdf[sl]
+            nee_area = lights.slot_area[sl]
+        wo = -direction
+
+        # ---- stochastic alpha test (opacity is 1 without cutouts) ----
+        r_alpha = random_1d(RandomTarget.ALPHA_TEST, pixel_id, sample_id,
+                            depth, bn=bn)
+        pass_thru = hit_lane & (r_alpha >= lane_mat.opacity)
+
+        # ---- emission on hit (one-sided), MIS vs light NEE ----
+        emissive = (mat_flags & MAT_FLAG_EMISSIVE) != 0
+        d_dot_ng = dot(ng_raw, direction)
+        front_face = d_dot_ng < 0.0
+        cos_light = torch.abs(d_dot_ng)
+        pdf_nee = light_pdf_from_row(nee_sel_pdf, nee_area, hit.t, cos_light)
+        w_emit = torch.where(prev_delta | ~prev_light_nee, 1.0,
+                             mis_balance(prev_pdf, pdf_nee))
+        add_emit = torch.where(hit_lane & emissive & front_face & ~pass_thru,
+                               w_emit, 0.0)
+        rad_r = rad_r + thr_r * em_r * add_emit
+        rad_g = rad_g + thr_g * em_g * add_emit
+        rad_b = rad_b + thr_b * em_b * add_emit
+
+        shadow_origin = Vec3(hit_pos.x + ng.x * _RAY_EPS,
+                             hit_pos.y + ng.y * _RAY_EPS,
+                             hit_pos.z + ng.z * _RAY_EPS)
+        nee_lane = hit_lane & ~lane_mat.translucent & ~pass_thru
+        frame = make_frame(lane_mat, ns, wo, scene.ggx_quad)
+
+        # ---- NEE 1: the sun, RIS over {cone sample, BSDF proposal} ----
+        sun_nee_on = nee_lane & sun_up & sky_has_sun
+        sun_dir_s = sample_sun_direction(sun_v, pixel_id, sample_id, depth,
+                                         bn=bn)
+        (fs_r, fs_g, fs_b), pdf_b_sun = frame_eval(
+            lane_mat, frame, lane_mat.roughness, sun_dir_s)
+        pdf_sun = _INV_SUN_SOLID_ANGLE
+        cand1_ok = sun_nee_on & (dot(sun_dir_s, ns) > 0.0)
+        phat1 = _lum(fs_r, fs_g, fs_b)
+        if config.sun_ris:
+            wi_b2, _w2, pdf_s2, is_delta2, trans2 = material_sample(
+                lane_mat, frame, ns, wo, pixel_id, sample_id, depth + 64, bn=bn)
+            sun2_on = (sun_nee_on & ~lane_mat.translucent & ~is_delta2 & ~trans2)
+            cand2_ok = (sun2_on & (dot(wi_b2, sun_v) >= SUN_COS_RADIUS)
+                        & (dot(wi_b2, ns) > 0.0))
+            (f2_r, f2_g, f2_b), pdf_eval2 = frame_eval(
+                lane_mat, frame, lane_mat.roughness, wi_b2)
+            n_b1 = 1.0 + sun2_on.to(torch.float32)
+            phat2 = _lum(f2_r, f2_g, f2_b)
+            w_s1 = torch.where(
+                cand1_ok & (phat1 > 0.0),
+                phat1 / torch.clamp(pdf_sun + pdf_b_sun * n_b1, min=1e-12), 0.0)
+            w_s2 = torch.where(
+                cand2_ok & (phat2 > 0.0),
+                pdf_eval2 / torch.clamp(pdf_sun + pdf_eval2 * 2.0, min=1e-12)
+                * phat2 / torch.clamp(pdf_s2, min=1e-12), 0.0)
+            wsum_sun = w_s1 + w_s2
+            r_spick = random_1d(RandomTarget.EMISSION_INDEX, pixel_id,
+                                sample_id, depth, bn=bn)
+            pick2 = (r_spick * wsum_sun < w_s2) & (w_s2 > 0.0)
+            sun_dir_w = vwhere(pick2, wi_b2, sun_dir_s)
+            fs_r = torch.where(pick2, f2_r, fs_r)
+            fs_g = torch.where(pick2, f2_g, fs_g)
+            fs_b = torch.where(pick2, f2_b, fs_b)
+            sel_phat_sun = torch.where(pick2, phat2, phat1)
+        else:
+            sun2_on = false
+            w_s1 = torch.where(
+                cand1_ok & (phat1 > 0.0),
+                phat1 / torch.clamp(pdf_sun + pdf_b_sun, min=1e-12), 0.0)
+            wsum_sun = w_s1
+            sun_dir_w = sun_dir_s
+            sel_phat_sun = phat1
+        sun_candidate = sun_nee_on & (wsum_sun > 0.0)
+        sun_ris_w = torch.where(
+            sun_candidate, wsum_sun / torch.clamp(sel_phat_sun, min=1e-20), 0.0)
+        rays_traced = rays_traced + sun_candidate.to(torch.float32).sum()
+
+        # ---- NEE 2: emissive triangles, RIS over K candidates ----
+        k_ris = max(int(config.ris_candidates), 1)
+        wsum = zeros
+        sel_phat = zeros
+        sel_pdf_sa = ones
+        sel_le = (zeros, zeros, zeros)
+        sel_dir = Vec3(zeros, zeros, ones)
+        sel_dist = ones
+        for k in range(k_ris):
+            dk = depth * 8 + k
+            if lights.has_tree and k == 0:
+                t_slot, t_pdf, t_valid = sample_light_tree(
+                    lights.tree_rows, lights.tree_num_nodes,
+                    lights.tree_levels, shadow_origin, pixel_id, sample_id,
+                    dk, bn=bn)
+                cand = dict(slot=t_slot, pdf_select=t_pdf, sel_valid=t_valid)
+            else:
+                cand = {}
+            (_l_slot, l_point, l_n, pdf_area, pdf_area_alias,
+             (le_r, le_g, le_b), l_valid, _bary) = sample_light_point(
+                lights, scene.light_slot_rows if use_rows else None,
+                pixel_id, sample_id, dk, geo=geo, materials=mats, bn=bn,
+                **cand)
+            to_light = l_point - shadow_origin
+            dist = torch.sqrt(torch.clamp(dot(to_light, to_light), min=0.0))
+            inv_dist = torch.reciprocal(torch.clamp(dist, min=1e-8))
+            l_dir = vwhere(
+                dist > 1e-6,
+                Vec3(to_light.x * inv_dist, to_light.y * inv_dist,
+                     to_light.z * inv_dist),
+                Vec3.of(0.0, 0.0, 1.0, like=to_light))
+            cos_l = -dot(l_n, l_dir)
+            pdf_l_sa = pdf_area * dist * dist / torch.clamp(cos_l, min=1e-8)
+            pdf_mis_sa = (pdf_area_alias * dist * dist
+                          / torch.clamp(cos_l, min=1e-8))
+            cos_s = dot(l_dir, ns)
+            cand_ok = (nee_lane & l_valid & (cos_l > 1e-6) & (cos_s > 0.0)
+                       & (dist > 1e-5))
+            lum_le = _lum(le_r, le_g, le_b)
+            phat = (lum_le * cos_l * torch.clamp(cos_s, min=0.0)
+                    * inv_dist * inv_dist)
+            w_k = torch.where(
+                cand_ok & (pdf_l_sa > 1e-12) & (phat > 0.0),
+                phat / torch.clamp(pdf_l_sa, min=1e-12), 0.0)
+            wsum = wsum + w_k
+            if k == 0:
+                take = w_k > 0.0
+            else:
+                r_k = random_1d(RandomTarget.LIGHT_RIS, pixel_id, sample_id,
+                                dk, bn=bn)
+                take = (r_k * wsum < w_k) & (w_k > 0.0)
+            sel_phat = torch.where(take, phat, sel_phat)
+            sel_pdf_sa = torch.where(take, pdf_mis_sa, sel_pdf_sa)
+            sel_le = tuple(torch.where(take, c, s)
+                           for c, s in zip((le_r, le_g, le_b), sel_le))
+            sel_dir = vwhere(take, l_dir, sel_dir)
+            sel_dist = torch.where(take, dist, sel_dist)
+        ris_w = torch.where(
+            sel_phat > 0.0,
+            wsum / (k_ris * torch.clamp(sel_phat, min=1e-20)), 0.0)
+        (fl_r, fl_g, fl_b), pdf_b_l = frame_eval(
+            lane_mat, frame, lane_mat.roughness, sel_dir)
+        sel_w_mis = mis_balance(sel_pdf_sa, pdf_b_l)
+        le_r, le_g, le_b = sel_le
+        l_dir, dist = sel_dir, sel_dist
+        light_candidate = wsum > 0.0
+        rays_traced = rays_traced + light_candidate.to(torch.float32).sum()
+
+        # ---- all shadow rays in one batched any-hit walk ----
+        shadow_o = Vec3(*(torch.cat([c, c]) for c in shadow_origin))
+        shadow_d = Vec3(*(torch.cat([a, b]) for a, b in zip(sun_dir_w, l_dir)))
+        shadow_t = torch.cat([torch.full((n,), MISS_DIST, device=dev),
+                              dist - 2.0 * _RAY_EPS])
+        shadow_act = torch.cat([sun_candidate, light_candidate])
+        occ = trace_occluded(geo.bvh, shadow_o, shadow_d, shadow_t,
+                             active=shadow_act)
+        sun_occluded, l_occluded = occ[:n], occ[n:2 * n]
+        sun_w = torch.where(sun_candidate & ~sun_occluded, sun_ris_w, 0.0)
+        rad_r = rad_r + thr_r * fs_r * sun_rad3[0] * sun_w
+        rad_g = rad_g + thr_g * fs_g * sun_rad3[1] * sun_w
+        rad_b = rad_b + thr_b * fs_b * sun_rad3[2] * sun_w
+        l_w = torch.where(light_candidate & ~l_occluded, sel_w_mis * ris_w, 0.0)
+        rad_r = rad_r + thr_r * fl_r * le_r * l_w
+        rad_g = rad_g + thr_g * fl_g * le_g * l_w
+        rad_b = rad_b + thr_b * fl_b * le_b * l_w
+
+        # ---- bounce ----
+        if depth + 1 < config.max_depth:
+            cur_ior = medium_top_ior(medium)
+            n_trans = torch.where(front_face | lane_mat.thin_walled,
+                                  lane_mat.ior, medium_below_ior(medium))
+            eta_rel = n_trans / torch.clamp(cur_ior, min=1e-6)
+            wi, (wr, wg, wb), pdf, is_delta, transmitted = material_sample(
+                lane_mat, frame, ns, wo, pixel_id, sample_id, depth,
+                eta_rel=eta_rel, bn=bn)
+            do_trans = active & hit_lane & transmitted & ~pass_thru
+            medium = torch.where(
+                do_trans,
+                torch.where(front_face, medium_push(medium, lane_mat.ior),
+                            medium_pop(medium)),
+                medium)
+            wi = vwhere(pass_thru, direction, wi)
+            wr = torch.where(pass_thru, 1.0, wr)
+            wg = torch.where(pass_thru, 1.0, wg)
+            wb = torch.where(pass_thru, 1.0, wb)
+            thr_r = thr_r * torch.where(active, wr, 1.0)
+            thr_g = thr_g * torch.where(active, wg, 1.0)
+            thr_b = thr_b * torch.where(active, wb, 1.0)
+            off = torch.where(transmitted, -_RAY_EPS, _RAY_EPS)
+            origin = vwhere(
+                pass_thru,
+                Vec3(hit_pos.x + direction.x * _RAY_EPS,
+                     hit_pos.y + direction.y * _RAY_EPS,
+                     hit_pos.z + direction.z * _RAY_EPS),
+                Vec3(hit_pos.x + ng.x * off, hit_pos.y + ng.y * off,
+                     hit_pos.z + ng.z * off))
+            direction = vwhere(active, wi, direction)
+            prev_pdf = torch.where(active & ~pass_thru, pdf,
+                                   torch.where(pass_thru, prev_pdf, 0.0))
+            prev_delta = torch.where(active & ~pass_thru, is_delta, prev_delta)
+            refl_side = ~transmitted
+            upd = active & ~pass_thru
+            prev_sun_nee = torch.where(upd, sun_nee_on & refl_side,
+                                       prev_sun_nee & pass_thru)
+            prev_sun2 = torch.where(upd, sun2_on & refl_side,
+                                    prev_sun2 & pass_thru)
+            prev_light_nee = torch.where(
+                upd, nee_lane & (lights.num_lights > 0) & refl_side,
+                prev_light_nee & pass_thru)
+
+            wmax = torch.maximum(torch.abs(wr), torch.maximum(torch.abs(wg),
+                                                              torch.abs(wb)))
+            active = active & (wmax > 0.0)
+
+            # Russian roulette past depth 2
+            if depth >= 2:
+                tmax = torch.maximum(thr_r, torch.maximum(thr_g, thr_b))
+                p_continue = torch.clamp(tmax, 0.05, 1.0)
+                r = random_1d(RandomTarget.RUSSIAN_ROULETTE, pixel_id,
+                              sample_id, depth, bn=bn)
+                active = active & (r < p_continue)
+                inv_p = 1.0 / p_continue
+                thr_r, thr_g, thr_b = thr_r * inv_p, thr_g * inv_p, thr_b * inv_p
+
+    # ---- deferred sky: one evaluation for all recorded misses ----
+    safe_dir = vwhere(ever_missed, miss_dir, Vec3.of(0.0, 1.0, 0.0, like=miss_dir))
+    in_sun_disc = dot(safe_dir, sun_v) >= SUN_COS_RADIUS
+    disc_w = torch.where(in_sun_disc, miss_sun_weight, 0.0)
+    sky_rgb = sky_radiance(sky, safe_dir, include_sun=False)
+    sky_r = sky_rgb.x + sun_radiance[0] * disc_w
+    sky_g = sky_rgb.y + sun_radiance[1] * disc_w
+    sky_b = sky_rgb.z + sun_radiance[2] * disc_w
+    add = ever_missed.to(torch.float32)
+    rad_r = rad_r + miss_thr_r * sky_r * add
+    rad_g = rad_g + miss_thr_g * sky_g * add
+    rad_b = rad_b + miss_thr_b * sky_b * add
+    return torch.stack([rad_r, rad_g, rad_b], dim=-1), rays_traced

@@ -1,0 +1,171 @@
+"""Package rules of the port: it imports no JAX and nothing of the JAX
+package; its entry points run on the card unless asked for the CPU; every
+feature it has not ported is refused, not stubbed."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from luminary_tpu_torch.render.renderer import Renderer
+from luminary_tpu_torch.scene.entities import (
+    MaterialBaseSubstrate,
+    ShadingMode,
+    SkyMode,
+)
+from luminary_tpu_torch.scene.mesh import Texture
+from luminary_tpu_torch.testing import cornell_scene, sun_plane_scene
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, luminary_tpu_torch\n"
+        "import luminary_tpu_torch.render.renderer, luminary_tpu_torch.kernels\n"
+        "import luminary_tpu_torch.testing\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'luminary_tpu' or m.startswith('luminary_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["Renderer", "pack_scene", "pack_camera"])
+def test_renderer_without_device_needs_a_card(monkeypatch, entry):
+    """No device argument means the card; without one an entry point raises
+    instead of falling back to the CPU."""
+    from luminary_tpu_torch.ops.camera import pack_camera
+    from luminary_tpu_torch.render.device_scene import pack_scene
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = cornell_scene(8, 8)
+    call = {"Renderer": lambda: Renderer(scene),
+            "pack_scene": lambda: pack_scene(scene),
+            "pack_camera": lambda: pack_camera(scene.camera)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def _with(setting):
+    def make():
+        s = cornell_scene(8, 8)
+        setting(s)
+        return s
+    return make
+
+
+def _settings(**kw):
+    def f(s):
+        st = s.get_entity("settings")
+        for k, v in kw.items():
+            setattr(st, k, v)
+        s.set_entity("settings", st)
+    return f
+
+
+def _entity(name, **kw):
+    def f(s):
+        e = s.get_entity(name)
+        for k, v in kw.items():
+            setattr(e, k, v)
+        s.set_entity(name, e)
+    return f
+
+
+def _textures(s):
+    import numpy as np
+
+    s.add_texture(Texture(data=np.zeros((4, 4, 4), np.uint8)))
+
+
+def _aux_texture(s):
+    m = s.get_material(0)
+    m.roughness_tex = 0
+    s.set_material(m)
+
+
+def _clouds(s):
+    sky = s.get_entity("sky")
+    sky.mode = SkyMode.DEFAULT
+    s.set_entity("sky", sky)
+    cl = s.get_entity("cloud")
+    cl.active = True
+    cl.low.active = True
+    s.set_entity("cloud", cl)
+
+
+def _caustics(s):
+    oc = s.get_entity("ocean")
+    oc.active = True
+    oc.caustics_active = True
+    s.set_entity("ocean", oc)
+    sky = s.get_entity("sky")
+    sky.mode = SkyMode.DEFAULT
+    s.set_entity("sky", sky)
+
+
+REFUSED = {
+    "use_textures": _with(_textures),
+    "use_aux_textures": _with(_aux_texture),
+    "use_clouds": _with(_clouds),
+    "use_bridges": _with(_entity("fog", active=True)),
+    "use_physical_camera": _with(_entity("camera", use_physical_camera=True)),
+    "env_nee": _with(_entity("sky", mode=SkyMode.HDRI)),
+    "spectral": _with(_settings(spectral_rendering=True)),
+    "ocean_caustics": _with(_caustics),
+    "analytic_ocean": _with(_entity("ocean", active=True)),
+    "water_scatter": _with(_entity("ocean", active=True, tessellated=True)),
+    "use_particles": _with(_entity("particles", active=True, count=16)),
+    "sort_wavefront": _with(_settings(wavefront_sorting=True)),
+    "shading_mode": _with(_settings(shading_mode=ShadingMode.ALBEDO)),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(REFUSED))
+def test_unported_feature_is_refused(flag):
+    scene = REFUSED[flag]()
+    with pytest.raises(NotImplementedError, match=flag):
+        Renderer(scene, device="cpu")
+
+
+def _cutout(s):
+    m = s.get_material(0)
+    m.albedo = (0.73, 0.73, 0.73, 0.5)
+    s.set_material(m)
+
+
+@pytest.mark.parametrize("case", ["cutout", "translucent_ok"])
+def test_scene_level_refusals(case):
+    s = cornell_scene(8, 8)
+    if case == "cutout":
+        _cutout(s)
+        with pytest.raises(NotImplementedError, match="cutout"):
+            Renderer(s, device="cpu")
+    else:
+        # a supported feature that shares code with refused ones: glass
+        m = s.get_material(0)
+        m.base_substrate = MaterialBaseSubstrate.TRANSLUCENT
+        s.set_material(m)
+        Renderer(s, device="cpu").render_samples(1)
+
+
+def test_cpu_render_launches_no_kernel():
+    from luminary_tpu_torch.ops.light_tree import light_tree_descend
+    from luminary_tpu_torch.ops.rowops import gather_soa
+    from luminary_tpu_torch.ops.traverse import traverse_wide
+
+    before = (gather_soa.launches, traverse_wide.launches,
+              light_tree_descend.launches)
+    r = Renderer(sun_plane_scene(8, 8), device="cpu")
+    r.render_samples(1)
+    assert (gather_soa.launches, traverse_wide.launches,
+            light_tree_descend.launches) == before
