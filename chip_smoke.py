@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``luminary_tpu_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare DIR]
 
 Phases, one or more lines each; any failure exits non-zero:
 
@@ -11,10 +11,16 @@ Phases, one or more lines each; any failure exits non-zero:
 3. kernels against their plain PyTorch versions at main-path shapes, on real
    inputs from ``benchmark_scene(1920, 1080, 4)`` packed on the card: kernel B
    (closest and any-hit; every lane where it and the plain packet walk differ
-   is checked for the packet cause), the unplanar ray pack, kernel A (every
-   table width and sub-stride the path uses), kernel C, and the random
-   streams (card against CPU), each with its time, bound, plain time and,
-   for kernel A and unplanar, a library yardstick;
+   must be a hit of the kernel that a brute-force test over all triangles
+   confirms, never one that only the plain walk finds), the unplanar ray
+   pack, kernel A (every table width and sub-stride the path uses), kernel
+   C, and the random streams (card against CPU), each with its time, bound,
+   plain time and, for kernel A and unplanar, a library yardstick. With
+   ``--compare DIR`` (a directory holding an earlier version's
+   ``traverse_wide.cu`` and ``light_tree_descend.cu``), that build is timed
+   in turns with the port's kernels B and C on the same inputs (this,
+   earlier, earlier, this), with its ptxas figures, its slab and triangle
+   test counts and, for kernel B, where it differs from the plain walk;
 4. main path: the tree-tier bench scene at 1080p, depth 4, through the
    Renderer, with launch counts of every kernel and Mrays/s;
 5. dense tier: ``cornell_scene(512, 512, 4)`` Mrays/s;
@@ -27,8 +33,11 @@ and last ``{"ok": true, "device": {...}}``. Details go to
 prints no result.
 """
 
+import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,7 +65,51 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(out: str) -> dict:
+    """-Xptxas -v output → {kernel entry: "R registers, F B stack frame,
+    S B spill stores, L B spill loads"} (template flags kept as digits)."""
+    res, cur, frame = {}, None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.sub(r"^_Z\d+", "", m.group(1)).split("P")[0]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            frame = "%s B stack frame, %s B spill stores, %s B spill loads" % m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            res[cur] = "%s registers, %s" % (m.group(1), frame)
+            cur, frame = None, ""
+    return res
+
+
+def build_libs(kernels, jobs) -> dict:
+    """Build [(key, source, extra nvcc flags, library path)] in parallel with
+    the port's flags → {key: (ctypes library, ptxas summary)}."""
+    procs = {}
+    for key, src, flags, lib in jobs:
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        procs[key] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-Xptxas", "-v",
+             "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (key, out))
+        libs[key] = (ctypes.CDLL(lib), ptxas_summary(out))
+    return libs
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", metavar="DIR",
+                    help="time an earlier version of kernels B and C, built "
+                         "from DIR, against this one")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -99,10 +152,43 @@ def main() -> int:
     build_s = time.monotonic() - t0
     log("[build] %d kernel libraries in %.2f s (parallel nvcc, sm_90a)" % (
         len(built), build_s))
-    report["build"] = {"seconds": build_s,
-                       "ptxas": {k: v[1] for k, v in built.items()}}
+    ptxas = {}
+    for k, v in built.items():
+        ptxas.update(ptxas_summary(v[1]))
+    for entry, summary in sorted(ptxas.items()):
+        log("[ptxas] %s: %s" % (entry, summary))
+    report["build"] = {"seconds": build_s, "ptxas": ptxas,
+                       "nvcc": {k: v[1] for k, v in built.items()}}
     for k in kernels.SOURCES:
         kernels.load(k)
+    # (kernel library name, label, ctypes library) of the earlier builds
+    # timed in turns with the port's own
+    alts = []
+    jobs = []
+    if args.compare:
+        jobs += [(("traverse_wide", "earlier"), os.path.join(args.compare, "traverse_wide.cu"),
+                  [], os.path.join(args.compare, "libtraverse_wide.so")),
+                 (("light_tree_descend", "earlier"),
+                  os.path.join(args.compare, "light_tree_descend.cu"), [],
+                  os.path.join(args.compare, "liblight_tree_descend.so"))]
+    for (name, label), (lib, summary) in build_libs(kernels, jobs).items():
+        alts.append((name, label, lib))
+        for entry, line in sorted(summary.items()):
+            log("[ptxas %s] %s: %s" % (label, entry, line))
+        report.setdefault("alt_ptxas", {})["%s %s" % (name, label)] = summary
+
+    def with_lib(name, lib, fn):
+        """Run fn with `lib` in place of the port's build of kernel `name`
+        (the same C interface, so the wrapper is unchanged)."""
+        cur = kernels.load(name)
+        entry = "lum_" + name
+        getattr(lib, entry).argtypes = getattr(cur, entry).argtypes
+        getattr(lib, entry).restype = getattr(cur, entry).restype
+        kernels._libs[name] = lib
+        try:
+            return fn()
+        finally:
+            kernels._libs[name] = cur
 
     def cuda_ms(fn, iters=10, warmup=2):
         for _ in range(warmup):
@@ -148,11 +234,12 @@ def main() -> int:
     def sub(v, ix):
         return Vec3(*(c[ix] for c in v))
 
-    # Where kernel B and its plain version (a 16-ray packet walk) disagree,
-    # the claimed cause is checked lane by lane: the plain walk tests a leaf
-    # for every live ray of a packet when any of them enters its box, while
-    # the kernel tests it only when the ray's own slab tests admit every box
-    # from the root down. parent maps: node/leaf -> (parent node, child k).
+    # Where kernel B (32-ray packets, a conservative box test) and its plain
+    # version (16-ray packets, as the JAX walk) disagree, the difference must
+    # be a triangle the kernel finds through a box the plain walk turned
+    # away; a triangle that only the plain walk finds would be a leak. Lanes
+    # are checked by brute force over all slots and by walking up the tree.
+    # parent maps: node/leaf -> (parent node, child k).
     m_nodes = bvh.num_nodes
     codes = bvh.rows.view(torch.int32)[:m_nodes, 96:112].long()
     m_of = torch.arange(m_nodes, device=dev)[:, None].expand(-1, TR.BRANCH)
@@ -170,8 +257,8 @@ def main() -> int:
     leaf_park[~codes[leafc]] = k_of[leafc]
 
     def own_path_admits(o, d, t_max, slot):
-        """Per lane: do the ray's own slab tests (the kernel's arithmetic,
-        t in [1e-4, t_max]) admit every box from the root to slot's leaf?"""
+        """Per lane: does the kernel's box test (``TR.slab_admits``, t in
+        [1e-4, t_max]) admit every box from the root to slot's leaf?"""
         inv = TR._safe_inv(d)
         node = leaf_par[slot.long() // TR.WIDE_LEAF]
         k = leaf_park[slot.long() // TR.WIDE_LEAF]
@@ -184,24 +271,18 @@ def main() -> int:
             def col(base):
                 return r.gather(1, kk + base)[:, 0]
 
-            t1x, t2x = (col(0) - o.x) * inv.x, (col(16) - o.x) * inv.x
-            t1y, t2y = (col(32) - o.y) * inv.y, (col(48) - o.y) * inv.y
-            t1z, t2z = (col(64) - o.z) * inv.z, (col(80) - o.z) * inv.z
-            enter = torch.maximum(
-                torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
-                torch.clamp(torch.minimum(t1z, t2z), min=1e-4))
-            leave = torch.minimum(
-                torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
-                torch.minimum(torch.maximum(t1z, t2z), t_max))
-            ok &= ~live | (enter <= leave)
+            box = TR.slab_admits(Vec3(col(0), col(32), col(64)),
+                                 Vec3(col(16), col(48), col(80)), o, inv, t_max)
+            ok &= ~live | box
             nn = node.clamp(min=0)
             node = torch.where(live, node_par[nn], -1)
             k = torch.where(live, node_park[nn], -1)
         return ok
 
     def occluders_hidden_from_ray(o, d, t_max):
-        """Per lane: (number of triangles the ray hits in (1e-4, t_max),
-        whether the ray's own slab tests reject the path to every one)."""
+        """Per lane, by brute force over all slots: (number of triangles the
+        ray hits in (1e-4, t_max), whether the kernel's box test rejects the
+        path to every one)."""
         n_hit = torch.zeros(o.x.shape[0], dtype=torch.long, device=dev)
         hidden = torch.ones(o.x.shape[0], dtype=torch.bool, device=dev)
         tv0, te1, te2 = bvh.tri_v0, bvh.tri_e1, bvh.tri_e2
@@ -218,6 +299,45 @@ def main() -> int:
             hidden[a:b] &= torch.bincount(lane[adm], minlength=b - a) == 0
         return n_hit, hidden
 
+    def true_hits_f64(o, d, t_max):
+        """Per lane: the number of triangles the ray hits in (1e-4, t_max)
+        when the Moller-Trumbore test runs in float64 on the same data."""
+        n_hit = torch.zeros(o.x.shape[0], dtype=torch.long, device=dev)
+        tris = [Vec3(*(c.double()[None] for c in v))
+                for v in (bvh.tri_v0, bvh.tri_e1, bvh.tri_e2)]
+        for a in range(0, o.x.shape[0], 32):
+            b = min(a + 32, o.x.shape[0])
+            t, _u, _v, h = ray_triangle(Vec3(*(c[a:b, None].double() for c in o)),
+                                        Vec3(*(c[a:b, None].double() for c in d)),
+                                        *tris)
+            n_hit[a:b] = (h & (t < t_max[a:b, None].double())).sum(dim=1)
+        return n_hit
+
+    def per_ray_tests(o, d, t_max, active, any_hit, chunk=1 << 20):
+        """Kernel B's slab and triangle test counts with every ray alone in
+        its 32-lane packet: each ray's own walk, nearest child first, the
+        work the function needs on this run's data. The counts of the
+        ordinary launch are those of its 32-ray packets."""
+        total = dict(node_tests=0, tri_tests=0)
+        for a in range(0, o.x.shape[0], chunk):
+            b = min(a + chunk, o.x.shape[0])
+
+            def spread(x, fill):
+                out = torch.full((32 * (b - a),), fill, dtype=x.dtype, device=dev)
+                out[::32] = x[a:b]
+                return out
+
+            st = {}
+            TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
+                             Vec3(*(spread(c, 0.0) for c in o)),
+                             Vec3(*(spread(c, 1.0) for c in d)),
+                             spread(t_max, 0.0), spread(active, False), any_hit,
+                             stats=st)
+            for k in total:
+                total[k] += st[k]
+        assert 0 < total["node_tests"] and 0 < total["tri_tests"], total
+        return total
+
     # kernel B, closest hit: first-depth camera rays
     hit = TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, origin,
                            direction, tmax, ones, False)
@@ -232,15 +352,19 @@ def main() -> int:
     tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
     other = torch.nonzero(~same & ~tie).flatten()
     n_tie, n_other = int(tie.sum()), int(other.numel())
-    # a non-tie difference must be a triangle nearer than the kernel's hit
-    # that the plain walk reached through a packet-mate's box
-    hidden_c = 0
+    # a non-tie difference must be a nearer hit of the kernel: its slot's
+    # triangle, tested alone, is hit at the kernel's t
+    confirmed_c = 0
     if n_other:
         lanes = ix[other]
-        plain_nearer = (ref.slot[other] >= 0) & (ref.t[other] < got.t[other])
-        hidden = ~own_path_admits(sub(origin, lanes), sub(direction, lanes),
-                                  tmax[lanes], ref.slot[other].clamp(min=0))
-        hidden_c = int((plain_nearer & hidden).sum())
+        g_slot = got.slot[other].clamp(min=0).long()
+        t_bf, _u, _v, h_bf = ray_triangle(
+            sub(origin, lanes), sub(direction, lanes), sub(bvh.tri_v0, g_slot),
+            sub(bvh.tri_e1, g_slot), sub(bvh.tri_e2, g_slot))
+        nearer = (got.slot[other] >= 0) & ((ref.slot[other] < 0)
+                                           | (got.t[other] < ref.t[other]))
+        real = h_bf & ((t_bf - got.t[other]).abs() <= 1e-6 * got.t[other])
+        confirmed_c = int((nearer & real).sum())
     keep = same & (got.slot >= 0)
     t_rel = float(((got.t - ref.t).abs() / ref.t.abs().clamp(min=1e-30))[keep].max())
     uv_err = float(torch.maximum((got.u - ref.u).abs(), (got.v - ref.v).abs())[keep].max())
@@ -248,18 +372,19 @@ def main() -> int:
                                 torch.maximum((got.u - ref.u).abs(),
                                               (got.v - ref.v).abs()))[keep].max())
     log("[kernel B closest] %d lanes vs plain: %d slots equal, %d exact-t ties, "
-        "%d other differences (%d of them a nearer triangle behind a box the "
-        "ray's own slab test rejects); t max rel err %.3g, u/v max abs err %.3g" % (
-            m, int(same.sum()), n_tie, n_other, hidden_c, t_rel, uv_err))
+        "%d other differences (%d of them a nearer hit of the kernel that a "
+        "brute-force test confirms); t max rel err %.3g, u/v max abs err %.3g" % (
+            m, int(same.sum()), n_tie, n_other, confirmed_c, t_rel, uv_err))
     # tolerances of tests/test_torch_traverse.py; ties held to 1e-4 of all
-    # lanes; every other difference must have the packet cause above
+    # lanes; every other difference must be a confirmed nearer kernel hit
     assert t_rel <= 1e-5 and uv_err <= 1e-5, (t_rel, uv_err)
-    assert n_tie <= 1e-4 * m and hidden_c == n_other, (n_tie, n_other, hidden_c)
+    assert n_tie <= 1e-4 * m and confirmed_c == n_other, (n_tie, n_other, confirmed_c)
     ms = cuda_ms(lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
                                           origin, direction, tmax, ones, False))
     stats, pstats = {}, {}
     TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, origin, direction,
                      tmax, ones, False, stats=stats)
+    own = per_ray_tests(origin, direction, tmax, ones, False)
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -270,22 +395,28 @@ def main() -> int:
     plain_ms = e0.elapsed_time(e1)
     table_bytes = bvh.rows.numel() * 4
     # bytes: ray rows in (8 words), hits out (4 words), the table once;
-    # operations: the slab and triangle tests the per-ray walk ran
+    # operations: each ray's own slab and triangle tests, the work the
+    # function needs; the tests the 32-ray packets add are their overhead
     b_ms, b_by = bound(n * 32 + n * 16 + table_bytes,
-                       stats["node_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS)
+                       own["node_tests"] * SLAB_OPS + own["tri_tests"] * TRI_OPS)
     log("[kernel B closest] %d rays: %.3f ms, plain %.3f ms, bound %.4f ms (%s; "
-        "per-ray walk %d slab + %d triangle tests; the plain packet walk ran "
-        "%d + %d)" % (n, ms, plain_ms, b_ms, b_by, stats["node_tests"],
-                      stats["tri_tests"], pstats["node_tests"], pstats["tri_tests"]))
-    report["kernel_b_closest_tests"] = dict(kernel=stats, plain_packet=pstats)
+        "the rays' own walks %d slab + %d triangle tests; the kernel's 32-ray "
+        "packets ran %d + %d, the plain walk's 16-ray packets %d + %d)" % (
+            n, ms, plain_ms, b_ms, b_by, own["node_tests"], own["tri_tests"],
+            stats["node_tests"], stats["tri_tests"], pstats["node_tests"],
+            pstats["tri_tests"]))
+    report["kernel_b_closest_tests"] = dict(per_ray=own, kernel_packet=stats,
+                                            plain_packet=pstats)
     kern.append(dict(
         name="traverse_wide.closest", route="cuda",
         source="luminary_tpu_torch/csrc/traverse_wide.cu",
         replaces="luminary_tpu/ops/traverse_pallas.py:120",
         variant="closest", max_abs_err=err_b, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        differing_lanes=n_tie + n_other, checked_lanes=m))
+        differing_lanes=n_tie + n_other, nearer_confirmed_lanes=confirmed_c,
+        checked_lanes=m, tests=own, packet_tests=stats))
 
+    ref_b = ref  # the plain walk's closest hits on the lanes ix
     # kernel B, any hit: the batched shadow rays of those hits (sun + light)
     valid = hit.slot >= 0
     t_safe = torch.where(valid, hit.t, 1.0)
@@ -314,27 +445,45 @@ def main() -> int:
     occ_ref = TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth,
                                      sub(sh_o, ix2), sub(sh_d, ix2), sh_t[ix2],
                                      sh_a[ix2], True)
-    kernel_only = int((occ[ix2] & ~occ_ref).sum())
+    kernel_only = torch.nonzero(occ[ix2] & ~occ_ref).flatten()
     plain_only = torch.nonzero(~occ[ix2] & occ_ref).flatten()
-    n_diff = kernel_only + int(plain_only.numel())
-    # every lane only the plain walk finds occluded must hit a triangle in
-    # range, and the ray's own slab tests must reject the path to each one
-    lanes = ix2[plain_only]
+    n_diff = int(kernel_only.numel()) + int(plain_only.numel())
+    # a lane only the kernel finds occluded must hit a triangle in range
+    # (brute force over all slots, the same arithmetic): the kernel found it
+    # through a box the plain walk's rounded test turned away, its own or a
+    # packet mate's
+    lanes = ix2[kernel_only]
     n_hit, hidden = occluders_hidden_from_ray(sub(sh_o, lanes), sub(sh_d, lanes),
                                               sh_t[lanes])
-    explained = int(((n_hit > 0) & hidden).sum())
+    confirmed = int((n_hit > 0).sum())
+    # a lane only the plain walk finds occluded would be a leak of the kernel
+    lanes_p = ix2[plain_only]
+    p_hit, p_hidden = occluders_hidden_from_ray(sub(sh_o, lanes_p),
+                                                sub(sh_d, lanes_p), sh_t[lanes_p])
     log("[kernel B any-hit] %d lanes vs plain: %d flags differ (%d only the "
-        "kernel, %d only the plain walk finds occluded, of which %d hit a "
-        "triangle in range whose path the ray's own slab tests reject; %d "
-        "occluded)" % (ix2.shape[0], n_diff, kernel_only, int(plain_only.numel()),
-                       explained, int(occ_ref.sum())))
-    assert kernel_only == 0 and explained == plain_only.numel(), (
-        kernel_only, int(plain_only.numel()), explained)
+        "kernel finds occluded, %d of them confirmed by brute force, %d through "
+        "a path the ray's own box tests admit; %d only the plain walk finds "
+        "occluded, %d of them behind a box the kernel's test rejects, %d hit "
+        "in float64; %d occluded)" % (
+            ix2.shape[0], n_diff, int(kernel_only.numel()), confirmed,
+            int(((n_hit > 0) & ~hidden).sum()), int(plain_only.numel()),
+            int(((p_hit > 0) & p_hidden).sum()),
+            int((true_hits_f64(sub(sh_o, lanes_p), sub(sh_d, lanes_p),
+                               sh_t[lanes_p]) > 0).sum()),
+            int(occ_ref.sum())))
+    if plain_only.numel():
+        torch.save(dict(origin=torch.stack(list(sub(sh_o, lanes_p))).cpu(),
+                        direction=torch.stack(list(sub(sh_d, lanes_p))).cpu(),
+                        t_max=sh_t[lanes_p].cpu(), lanes=lanes_p.cpu()),
+                   os.path.join(out_dir, "kernel_b_plain_only_lanes.pt"))
+    assert plain_only.numel() == 0 and confirmed == kernel_only.numel(), (
+        int(plain_only.numel()), int(kernel_only.numel()), confirmed)
     ms = cuda_ms(lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
                                           sh_o, sh_d, sh_t, sh_a, True))
     stats, pstats = {}, {}
     TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, sh_o, sh_d, sh_t,
                      sh_a, True, stats=stats)
+    own = per_ray_tests(sh_o, sh_d, sh_t, sh_a, True)
     torch.cuda.synchronize()
     e0.record()
     TR.traverse_wide_plain(bvh.rows, bvh.num_nodes, bvh.depth, sh_o, sh_d, sh_t,
@@ -343,12 +492,15 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_ms = e0.elapsed_time(e1)
     b_ms, b_by = bound(2 * n * 32 + 2 * n + table_bytes,
-                       stats["node_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS)
+                       own["node_tests"] * SLAB_OPS + own["tri_tests"] * TRI_OPS)
     log("[kernel B any-hit] %d rays: %.3f ms, plain %.3f ms, bound %.4f ms (%s; "
-        "per-ray walk %d slab + %d triangle tests; the plain packet walk ran "
-        "%d + %d)" % (2 * n, ms, plain_ms, b_ms, b_by, stats["node_tests"],
-                      stats["tri_tests"], pstats["node_tests"], pstats["tri_tests"]))
-    report["kernel_b_any_hit_tests"] = dict(kernel=stats, plain_packet=pstats)
+        "the rays' own walks %d slab + %d triangle tests; the kernel's 32-ray "
+        "packets ran %d + %d, the plain walk's 16-ray packets %d + %d)" % (
+            2 * n, ms, plain_ms, b_ms, b_by, own["node_tests"], own["tri_tests"],
+            stats["node_tests"], stats["tri_tests"], pstats["node_tests"],
+            pstats["tri_tests"]))
+    report["kernel_b_any_hit_tests"] = dict(per_ray=own, kernel_packet=stats,
+                                            plain_packet=pstats)
     kern.append(dict(
         name="traverse_wide.any_hit", route="cuda",
         source="luminary_tpu_torch/csrc/traverse_wide.cu",
@@ -356,8 +508,8 @@ def main() -> int:
         variant="any_hit", max_abs_err=1.0 if n_diff else 0.0, ms=ms,
         plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        differing_lanes=n_diff, explained_lanes=explained,
-        checked_lanes=int(ix2.shape[0])))
+        differing_lanes=n_diff, kernel_only_confirmed_lanes=confirmed,
+        checked_lanes=int(ix2.shape[0]), tests=own, packet_tests=stats))
 
     # unplanar: the [C, N] -> [N, C] pack of the ray lanes kernel B reads,
     # at the camera-ray and shadow-ray shapes
@@ -387,7 +539,6 @@ def main() -> int:
         bound_ms=u_rows[0]["bound_ms"], bound_by=u_rows[0]["bound_by"],
         library_ms=u_rows[0]["library_ms"], shape=u_rows[0]["case"],
         cases=u_rows))
-    del occ, occ_ref, sh_o, sh_d, sh_t, sh_a
 
     # kernel A: every table the main path gathers from, at N lanes
     g = torch.Generator(device=dev).manual_seed(1)
@@ -493,6 +644,68 @@ def main() -> int:
         replaces="luminary_tpu/ops/light_tree_pallas.py:88",
         max_abs_err=pdf_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, differing_lanes=int(bad.numel())))
+
+    # an earlier version of kernels B and C (--compare) against the port's,
+    # in turns (this, earlier, earlier, this)
+    by_name = {k["name"]: k for k in kern}
+    for kname, lib_name, fn, args_b in (
+            ("traverse_wide.closest", "traverse_wide",
+             lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
+                                      origin, direction, tmax, ones, False),
+             (origin, direction, tmax, ones)),
+            ("traverse_wide.any_hit", "traverse_wide",
+             lambda: TR.traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth,
+                                      sh_o, sh_d, sh_t, sh_a, True),
+             (sh_o, sh_d, sh_t, sh_a)),
+            ("light_tree_descend", "light_tree_descend",
+             lambda: LT.light_tree_descend(
+                 lights.tree_rows, lights.tree_num_nodes,
+                 lights.tree_levels, so, rnd), None)):
+        others = [(label, lib) for name, label, lib in alts if name == lib_name]
+        if not others:
+            continue
+        order = [("this", None)] + others
+        turns = {label: [] for label, _ in order}
+        for label, lib in order + order[::-1]:
+            turns[label].append(cuda_ms(fn) if lib is None
+                                else with_lib(lib_name, lib, lambda: cuda_ms(fn)))
+        lines = {}
+        for label, lib in others:
+            line = dict(ms=sum(turns[label]) / 2, turns=turns[label])
+            if args_b is not None:
+                # the other build's test counts, and where its flags differ
+                # from the plain walk's on the compared lanes
+                any_hit = kname.endswith("any_hit")
+                line["tests"] = {}
+                out = with_lib(lib_name, lib, lambda: TR.traverse_wide(
+                    bvh.rows, bvh.num_nodes, bvh.depth, *args_b, any_hit,
+                    stats=line["tests"]))
+                if any_hit:
+                    p_only = ix2[torch.nonzero(~out[ix2] & occ_ref).flatten()]
+                    line["plain_only_lanes"] = int(p_only.numel())
+                    line["plain_only_true_f64"] = int((true_hits_f64(
+                        sub(sh_o, p_only), sub(sh_d, p_only), sh_t[p_only]) > 0).sum())
+                    line["kernel_only_lanes"] = int((out[ix2] & ~occ_ref).sum())
+                else:
+                    line["slots_differ"] = int((out.slot[ix] != ref_b.slot).sum())
+            lines[label] = line
+            log("[compare %s] %s: %.3f ms, this: %.3f ms (turns %s / %s)%s | %s" % (
+                kname, label, line["ms"], sum(turns["this"]) / 2,
+                ", ".join("%.3f" % t for t in turns[label]),
+                ", ".join("%.3f" % t for t in turns["this"]),
+                "" if args_b is None else "; %d slab + %d triangle tests%s" % (
+                    line["tests"]["node_tests"], line["tests"]["tri_tests"],
+                    "; against the plain walk %d lanes occluded by the plain walk "
+                    "only (%d of them hit a triangle in range in float64), %d by "
+                    "this build only" % (line["plain_only_lanes"],
+                                         line["plain_only_true_f64"],
+                                         line["kernel_only_lanes"])
+                    if "plain_only_lanes" in line
+                    else "; %d slots differ from the plain walk" % line["slots_differ"]),
+                smi))
+        by_name[kname]["compare"] = dict(this_ms=sum(turns["this"]) / 2,
+                                         this_turns=turns["this"], others=lines)
+    del occ, occ_ref, sh_o, sh_d, sh_t, sh_a
 
     # random streams: card against CPU, 10^6 lanes
     rng = np.random.default_rng(3)

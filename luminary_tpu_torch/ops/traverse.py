@@ -4,12 +4,14 @@ kernel B, ``csrc/traverse_wide.cu``.
 Scenes up to ``DENSE_MAX_SLOTS`` slots brute-force one ``[T, N]``
 Möller-Trumbore tile in plain PyTorch (the JAX package's XLA dense tier).
 Larger scenes walk the unified 16-wide node+leaf table
-(``bvh/wide.py`` layout): on a CUDA table through kernel B, one thread per
-ray reading one 32-byte row per ray that the ``unplanar`` kernel packs from
-the SoA lanes (``ops/rowops.py``), on a CPU table through :func:`traverse_wide_plain`, an eager port of the
-JAX package's packet walk ``_traverse_wide``. The TPU-only parts of the
-Pallas walk (XLA-level row fetch, packet compaction, lockstep shrink phases)
-have no counterpart.
+(``bvh/wide.py`` layout): on a CUDA table through kernel B, the same packet
+walk with a warp of 32 rays per packet, reading one 32-byte row per ray that
+the ``unplanar`` kernel packs from the SoA lanes (``ops/rowops.py``); on a
+CPU table through :func:`traverse_wide_plain`, an eager port of the JAX
+package's packet walk ``_traverse_wide`` (16 rays per packet). Kernel B's
+box test is conservative (:func:`slab_admits` mirrors it); the plain one's,
+like the JAX one's, is not. The TPU-only parts of the Pallas walk (XLA-level
+row fetch, packet compaction, lockstep shrink phases) have no counterpart.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ WIDE_LEAF = 14
 BRANCH = 16
 PACKET = 16
 MAX_STACK = 64  # csrc/traverse_wide.cu MAX_STACK
+# csrc/traverse_wide.cu ROBUST_FAR: 1 + 2^-21, the float32 value at or above
+# 1 + 2*gamma(3) (Ize, "Robust BVH Ray Traversal", JCGT 2(2), 2013)
+ROBUST_FAR = 1.0 + 2.0 ** -21
 
 
 @dataclass
@@ -120,6 +125,28 @@ def _safe_inv(direction: Vec3) -> Vec3:
                         torch.where(c < 0, -1e-20, 1e-20), c))
 
     return Vec3(f(direction.x), f(direction.y), f(direction.z))
+
+
+def slab_admits(lo: Vec3, hi: Vec3, origin: Vec3, inv_dir: Vec3, t_max,
+                t_min: float = 1e-4) -> torch.Tensor:
+    """Kernel B's box test, elementwise in float32: does the ray meet the box
+    [lo, hi] within [t_min, t_max]? ``inv_dir`` is :func:`_safe_inv` of the
+    direction. The far distance is widened by ROBUST_FAR before the
+    comparison, so the rounding of the test cannot reject a box that holds a
+    triangle the ray hits."""
+    t1x = (lo.x - origin.x) * inv_dir.x
+    t2x = (hi.x - origin.x) * inv_dir.x
+    t1y = (lo.y - origin.y) * inv_dir.y
+    t2y = (hi.y - origin.y) * inv_dir.y
+    t1z = (lo.z - origin.z) * inv_dir.z
+    t2z = (hi.z - origin.z) * inv_dir.z
+    enter = torch.maximum(
+        torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+        torch.clamp(torch.minimum(t1z, t2z), min=t_min))
+    leave = torch.minimum(
+        torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+        torch.minimum(torch.maximum(t1z, t2z), t_max))
+    return enter <= leave * ROBUST_FAR
 
 
 def _trace_dense(bvh: DeviceBVH, origin: Vec3, direction: Vec3, t_max,
@@ -423,9 +450,11 @@ def traverse_wide(rows: torch.Tensor, num_nodes: int, depth: int,
     """Kernel B: closest hit (:class:`Hit`) or any hit (bool [N]) of each
     active ray against the unified wide table; inactive rays miss.
 
-    ``stats``, when given, receives the walk's ``node_tests`` (child slab
-    tests) and ``tri_tests`` (triangle tests): on a CUDA table those the
-    per-ray kernel ran, on a CPU table those of the plain packet walk."""
+    ``stats``, when given, receives the walk's ``node_tests`` (live ray x
+    child slab tests) and ``tri_tests`` (live ray x triangle tests): on a
+    CUDA table those of the kernel's 32-ray packets (one packet per 32
+    lanes, so with one active lane in 32 those of a per-ray walk), on a CPU
+    table those of the plain walk's 16-ray packets."""
     if rows.is_cuda:
         return _launch(rows, num_nodes, depth, origin, direction, t_max,
                        active, any_hit, stats)
