@@ -21,6 +21,15 @@ Phases, one or more lines each; any failure exits non-zero:
    in turns with the port's kernels B and C on the same inputs (this,
    earlier, earlier, this), with its ptxas figures, its slab and triangle
    test counts and, for kernel B, where it differs from the plain walk;
+3b. prototype kernels: kernel D (row gather; the fill-NaN, clamp and
+   zero-with-bf16 index rules), kernel E (ordered row sum and dependent
+   fetch chain), kernel F (slab body, both fetch modes) and kernel T
+   (transpose) against their plain versions at the shapes of the Pallas
+   prototypes in ``tools/``, with time, bound, plain time and a library
+   yardstick where one exists; then the port's three tool entry points
+   (``luminary_tpu_torch.tools``: ``proto_gather all``, ``proto_gather2
+   all``, ``microbench_colext`` main and main2) on the card, with the launch
+   counts of D, E, F and T from 0;
 4. main path: the tree-tier bench scene at 1080p, depth 4, through the
    Renderer, with launch counts of every kernel and Mrays/s;
 5. dense tier: ``cornell_scene(512, 512, 4)`` Mrays/s;
@@ -52,6 +61,9 @@ TRI_OPS = 50
 # weight in csrc/light_tree_descend.cu
 NODE_CHILD_OPS = 48
 LEAF_LIGHT_OPS = 26
+# operations of one (packet, child, ray) of csrc/slab_body.cu: 6 subtracts,
+# 6 multiplies, 10 min/max, a compare, a select and the min over rays
+SLAB_BODY_OPS = 25
 
 
 def log(msg):
@@ -102,6 +114,197 @@ def build_libs(kernels, jobs) -> dict:
             raise RuntimeError("nvcc failed for %s:\n%s" % (key, out))
         libs[key] = (ctypes.CDLL(lib), ptxas_summary(out))
     return libs
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, except that any NaN equals any NaN."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
+    """Kernels D, E (sum and chain), F and T against their plain versions
+    at the prototypes' shapes, each with its time, bound, plain time and,
+    where one PyTorch call computes the same function, that call's time.
+    Returns their entries of the kernels line (launches set by the caller)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from luminary_tpu_torch.tools import launch_ms
+    from luminary_tpu_torch.tools import microbench_colext as CX
+    from luminary_tpu_torch.tools import proto_gather as PG
+    from luminary_tpu_torch.tools import proto_gather2 as PG2
+
+    # the kernels' and libraries' device time per launch, from CUDA-graph
+    # replays (launch_ms): timed over eager calls, the small launches here
+    # would time the host's cost of each call instead
+    def dev_ms(fn):
+        return launch_ms(fn, dev)
+
+    out = []
+    rng = np.random.default_rng(4)
+    rows, cols = PG.S, PG.COLS
+    tab = torch.as_tensor(rng.random((rows, cols), dtype=np.float32)).to(dev)
+    tab_bf16 = tab.to(torch.bfloat16).to(torch.float32)
+    edge = torch.tensor([0, -1, rows, rows + 5, -rows - 3, 7], dtype=torch.int32)
+
+    def rand_idx(n):
+        idx = torch.as_tensor(rng.integers(0, rows, n, dtype=np.int32)).to(dev)
+        idx[:6] = edge.to(dev)
+        return idx
+
+    # kernel D: E1 / E1b (fill_nan), E4 (clamp) at 65,536 rows, E3 (zero,
+    # bf16) at 512 rows; edge indices lead each index vector
+    d_rows = []
+    for label, n, mode, bf16 in (("e1 take fill_nan", PG.N, "fill_nan", False),
+                                 ("e4 ref[idx] clamp", PG.N, "clamp", False),
+                                 ("e3 one-hot zero bf16", PG.G, "zero", True)):
+        idx = rand_idx(n)
+        got = PG.gather_rows(tab, idx, mode, bf16)
+        ref = PG.gather_rows_plain(tab, idx, mode, bf16)
+        assert same_bits(got, ref), label
+        ms = dev_ms(lambda: PG.gather_rows(tab, idx, mode, bf16))
+        call_ms = cuda_ms(lambda: PG.gather_rows(tab, idx, mode, bf16), iters=20)
+        plain_ms = cuda_ms(lambda: PG.gather_rows_plain(tab, idx, mode, bf16))
+        src = tab_bf16 if bf16 else tab
+        idx_c = idx.long().clamp(0, rows - 1)
+        lib_ms = dev_ms(lambda: src.index_select(0, idx_c))
+        k = idx.long()
+        k = torch.where(k < 0, k + rows, k) if mode != "zero" else k
+        used = torch.unique(k[(k >= 0) & (k < rows)]).numel()
+        b_ms, b_by = bound(used * cols * 4 + n * 4 + n * cols * 4, 0)
+        log("[kernel D %s] %d rows x %d: equal (NaN rows alike); %.4f ms a launch "
+            "(one eager call %.4f ms), plain %.4f ms, library %.4f ms "
+            "(index_select%s), bound %.4f ms (%s) | %s" % (
+                label, n, cols, ms, call_ms, plain_ms, lib_ms,
+                " on the bf16-rounded table" if bf16 else "", b_ms, b_by, smi))
+        d_rows.append(dict(case=label, rows=n, ms=ms, call_ms=call_ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                           bound_by=b_by))
+    out.append(dict(
+        name="gather_rows", route="cuda",
+        source="luminary_tpu_torch/csrc/gather_rows.cu",
+        replaces="tools/proto_pallas_gather.py:52",
+        also_replaces=["tools/proto_pallas_gather.py:80",
+                       "tools/proto_pallas_gather.py:143",
+                       "tools/proto_pallas_gather.py:169"],
+        max_abs_err=0.0, **{k: d_rows[0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=d_rows[0]["case"], cases=d_rows))
+
+    # kernel E, gather_sum: E2's 2048 fetches, summed in order
+    idx = rand_idx(PG.K)
+    got = PG.gather_sum(tab, idx)
+    ref = PG.gather_sum_plain(tab, idx)
+    assert torch.equal(got, ref)
+    ms = dev_ms(lambda: PG.gather_sum(tab, idx))
+    call_ms = cuda_ms(lambda: PG.gather_sum(tab, idx), iters=20)
+    plain_ms = cuda_ms(lambda: PG.gather_sum_plain(tab, idx), iters=3)
+    idx_c = idx.long()
+    idx_c = torch.where(idx_c < 0, idx_c + rows, idx_c).clamp(0, rows - 1)[None]
+    lib_ms = dev_ms(lambda: F.embedding_bag(idx_c, tab, mode="sum"))
+    lib_err = float((F.embedding_bag(idx_c, tab, mode="sum") - ref).abs().max())
+    used = torch.unique(idx_c).numel()
+    b_ms, b_by = bound(used * cols * 4 + PG.K * 4 + cols * 4, PG.K * cols)
+    log("[kernel E gather_sum] %d fetches x %d: exact; %.4f ms a launch (%.1f "
+        "ns/row; one eager call %.4f ms), plain %.3f ms, library %.4f ms "
+        "(embedding_bag sum, max abs diff %.3g: its own order), bound %.5f ms "
+        "(%s; latency sets the time) | %s" % (
+            PG.K, cols, ms, ms / PG.K * 1e6, call_ms, plain_ms, lib_ms, lib_err,
+            b_ms, b_by, smi))
+    out.append(dict(
+        name="gather_sum", route="cuda", source="luminary_tpu_torch/csrc/gather_sum.cu",
+        replaces="tools/proto_pallas_gather.py:112", max_abs_err=0.0, ms=ms,
+        call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, ns_per_row=ms / PG.K * 1e6))
+
+    # kernel E, gather_chain: E2c's 4096 dependent fetches on a 2 * randn
+    # table (the row[1] > 2 branch taken) from a negative seed
+    tab2_np = (2.0 * rng.standard_normal((rows, cols))).astype(np.float32)
+    tab2 = torch.as_tensor(tab2_np).to(dev)
+    seed = -0.0123
+    steps = PG2.ROWS_PER_CALL
+    got = PG2.gather_chain(tab2, seed, steps)
+    ref = PG2.gather_chain_plain(tab2, seed, steps)
+    assert torch.equal(got, ref)
+    path = PG2.chain_rows(tab2_np, seed, steps)
+    branch = int((tab2_np[path, 1] > 2).sum())
+    assert branch > 0
+    seed_t = torch.tensor([seed], dtype=torch.float32, device=dev)
+    ms = dev_ms(lambda: PG2.gather_chain(tab2, seed_t, steps))
+    plain_ms = cuda_ms(lambda: PG2.gather_chain_plain(tab2, seed_t, steps), iters=2,
+                       warmup=1)
+    b_ms, b_by = bound(np.unique(path).size * cols * 4 + 4 + cols * 4,
+                       steps * (cols + 6))
+    log("[kernel E gather_chain] %d dependent fetches x %d (%d through the "
+        "row[1] > 2 branch): exact; %.4f ms (%.1f ns/row), plain %.1f ms, bound "
+        "%.5f ms (%s; a chain of dependent loads: latency sets the time) | %s" % (
+            steps, cols, branch, ms, ms / steps * 1e6, plain_ms, b_ms, b_by, smi))
+    out.append(dict(
+        name="gather_chain", route="cuda", source="luminary_tpu_torch/csrc/gather_sum.cu",
+        replaces="tools/proto_pallas_gather2.py:64", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ns_per_row=ms / steps * 1e6))
+
+    # kernel F: E5's 1024 packets, rows resident and fetched
+    g = PG2.SLAB_G
+    ox = torch.as_tensor(rng.random((8, g), dtype=np.float32)).to(dev)
+    fetch = rand_idx(g)[:, None]
+    seed_s = torch.tensor([PG2.SLAB_SEED], dtype=torch.float32, device=dev)
+    f_rows = []
+    for mode in PG2.FETCH_MODES:
+        f = fetch if mode == "scalarloop" else None
+        got = PG2.slab_body(tab, ox, PG2.SLAB_SEED, f)
+        ref = PG2.slab_body_plain(tab, ox, PG2.SLAB_SEED, f)
+        assert torch.equal(got, ref), mode
+        ms = dev_ms(lambda: PG2.slab_body(tab, ox, seed_s, f))
+        call_ms = cuda_ms(lambda: PG2.slab_body(tab, ox, seed_s, f), iters=20)
+        plain_ms = cuda_ms(lambda: PG2.slab_body_plain(tab, ox, seed_s, f))
+        if f is None:
+            read = g * 96 * 4
+        else:
+            k = f.long()[:, 0]
+            k = torch.where(k < 0, k + rows, k).clamp(0, rows - 1)
+            read = torch.unique(k).numel() * 96 * 4 + g * 4
+        b_ms, b_by = bound(read + 8 * g * 4 + 4 + g * 4,
+                           g * (16 * 8 * SLAB_BODY_OPS + 8))
+        log("[kernel F slab_body %s] %d packets x 16 children x 8 rays: exact "
+            "(%d all-miss packets); %.4f ms a launch (one eager call %.4f ms), "
+            "plain %.3f ms, bound %.5f ms (%s; 64 blocks: launch and one wave's "
+            "latency set the time) | %s" % (
+                mode, g, int(torch.isinf(got).sum()), ms, call_ms, plain_ms, b_ms,
+                b_by, smi))
+        f_rows.append(dict(case=mode, packets=g, ms=ms, call_ms=call_ms,
+                           plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by))
+    out.append(dict(
+        name="slab_body", route="cuda", source="luminary_tpu_torch/csrc/slab_body.cu",
+        replaces="tools/proto_pallas_gather2.py:126", max_abs_err=0.0,
+        **{k: f_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        shape="fetch none", cases=f_rows))
+
+    # kernel T: colext's [2^21, 48] gather output to planar [48, 2^21]
+    x = torch.randn((CX.N, 48), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    got = CX.transpose(x)
+    assert torch.equal(got, CX.transpose_plain(x))
+    ms = dev_ms(lambda: CX.transpose(x))
+    plain_ms = cuda_ms(lambda: CX.transpose_plain(x), iters=3)
+    lib_ms = dev_ms(lambda: x.t().contiguous())
+    b_ms, b_by = bound(2 * x.numel() * 4, 0)
+    log("[kernel T transpose] [%d, 48] -> [48, %d]: exact; %.4f ms, plain %.3f ms, "
+        "library %.4f ms (t().contiguous()), bound %.4f ms (%s) | %s" % (
+            CX.N, CX.N, ms, plain_ms, lib_ms, b_ms, b_by, smi))
+    out.append(dict(
+        name="transpose", route="cuda", source="luminary_tpu_torch/csrc/transpose.cu",
+        replaces="tools/microbench_colext.py:78", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return out
 
 
 def main() -> int:
@@ -730,6 +933,35 @@ def main() -> int:
     del hit, ref, got, rnd, pos, so, srow, inter
     torch.cuda.empty_cache()
 
+    # ---- 3b. prototype kernels (tools/proto_pallas_gather*.py,
+    # tools/microbench_colext.py) at the prototypes' shapes ----
+    tool_kern = prototype_kernels(dev, cuda_ms, bound, smi)
+    kern += tool_kern
+    # the port's three tool entry points, each kernel's count from 0
+    from luminary_tpu_torch.tools import microbench_colext as CX
+    from luminary_tpu_torch.tools import proto_gather as PG
+    from luminary_tpu_torch.tools import proto_gather2 as PG2
+
+    tool_wrappers = {"gather_rows": PG.gather_rows, "gather_sum": PG.gather_sum,
+                     "gather_chain": PG2.gather_chain, "slab_body": PG2.slab_body,
+                     "transpose": CX.transpose}
+    for w in tool_wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    PG.main("all", device=dev)
+    PG2.main("all", device=dev)
+    CX.main(device=dev)
+    CX.main2(device=dev)
+    tool_launches = {k: w.launches for k, w in tool_wrappers.items()}
+    log("[tools] proto_gather all, proto_gather2 all, microbench_colext main + "
+        "main2 in %.1f s; launches %s | %s" % (time.monotonic() - t0,
+                                               tool_launches, smi))
+    assert all(v > 0 for v in tool_launches.values()), tool_launches
+    for k in tool_kern:
+        k["launches"] = tool_launches[k["name"]]
+    report["tool_launches"] = tool_launches
+    torch.cuda.empty_cache()
+
     # ---- 4. main path: tree-1080p through the Renderer ----
     warm, timed = 2, 6
     r.render_samples(warm)
@@ -764,7 +996,8 @@ def main() -> int:
                                 spp_per_s=timed / dt, rays_per_sample=rays,
                                 launches=launches, pack_s=pack_s)
     for k in kern:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
     del r, acc
     torch.cuda.empty_cache()
 

@@ -24,7 +24,8 @@ import subprocess
 import threading
 import time
 
-SOURCES = ("gather_soa", "traverse_wide", "light_tree_descend")
+SOURCES = ("gather_soa", "traverse_wide", "light_tree_descend", "gather_rows",
+           "gather_sum", "slab_body", "transpose")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(
@@ -99,6 +100,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _libs[name] = lib
         return lib
+
+
+def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """C function ``fn`` of kernel library ``name`` (built first if needed)
+    with its signature set; it returns the launch's ``cudaGetLastError()``."""
+    f = getattr(load(name), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = argtypes
+    return f
 
 
 def check(rc: int, name: str) -> None:

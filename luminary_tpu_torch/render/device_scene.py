@@ -29,6 +29,7 @@ from ..ops.traverse import DeviceBVH, pack_device_bvh
 from ..ops.vec import Vec3
 from ..scene.entities import Material, MaterialBaseSubstrate
 from ..scene.scene import Scene
+from ..utils.errors import InvalidAPIArgumentError
 from ..utils.log import info_message
 
 MAT_FLAG_EMISSIVE = 1
@@ -372,12 +373,30 @@ def pack_light_slot_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarr
     return rows
 
 
+F16_MAX = 65504.0  # the largest finite f16: emission's limit in the shade row
+
+
 def pack_shade_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
     """Per-slot shade rows [P, SHP_COLS] i32 (one slot per row); every word
-    equals the reference's packed word for that slot."""
+    equals the reference's packed word for that slot.
+
+    Where the reference would wrap or overflow, this raises
+    ``InvalidAPIArgumentError``: a material id or ``instance_id + 1`` that
+    does not fit the word's 16 bits, or a pre-scaled emission component
+    above 65504, the largest finite f16."""
     p = hg.material_id.shape[0]
     mat = hg.material_id.astype(np.int64)
     inst = hg.instance_id.astype(np.int64)
+    for name, v in (("material id", mat), ("instance id + 1", inst + 1)):
+        if v.size and int(v.max()) > 0xFFFF:
+            raise InvalidAPIArgumentError(
+                "%s %d does not fit the shade row's 16 bits" % (name, int(v.max())))
+    for ch in ("emission_r", "emission_g", "emission_b"):
+        e = mats[ch][mat]
+        if e.size and float(np.abs(e).max()) > F16_MAX:
+            raise InvalidAPIArgumentError(
+                "pre-scaled %s %g of a material in use exceeds the f16 maximum "
+                "%g of the shade row" % (ch, float(np.abs(e).max()), F16_MAX))
     ids = ((mat & 0xFFFF) | (((inst + 1) & 0xFFFF) << 16)).astype(np.uint32)
 
     def f32(v):

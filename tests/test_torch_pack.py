@@ -12,15 +12,25 @@ import torch
 
 from luminary_tpu.ops.camera import pack_camera as j_pack_camera
 from luminary_tpu.render.device_scene import pack_scene as j_pack_scene
+from luminary_tpu.render.device_scene import pack_shade_packed as j_pack_shade_packed
 from luminary_tpu.testing import cornell_scene as j_cornell
 from luminary_tpu_torch.ops.camera import pack_camera
 from luminary_tpu_torch.render.device_scene import (
+    F16_MAX,
+    SHP_EM_B_ROUGH,
+    SHP_EM_RG,
+    SHP_IDS,
     DeviceMaterials,
     from_jax_arrays,
+    materials_np,
+    pack_geometry_np,
+    pack_lights_for,
     pack_scene,
+    pack_shade_rows,
     unpack_reference_shade_rows,
 )
 from luminary_tpu_torch.testing import cornell_scene
+from luminary_tpu_torch.utils.errors import InvalidAPIArgumentError
 
 torch.set_num_threads(1)
 
@@ -165,3 +175,63 @@ def test_from_jax_arrays_equals_own_pack(packs):
     for name in TABLES:
         assert same_words(a[name], b[name]), name
     assert carried.geo.bvh.depth == packs["t"].geo.bvh.depth
+
+
+def _host_pack(scene):
+    hg = pack_geometry_np(scene)
+    mats = materials_np(scene)
+    return hg, mats, pack_lights_for(hg, mats)
+
+
+@pytest.mark.parametrize("case", ["material_id", "instance_id", "emission"])
+def test_packer_raises_where_reference_wraps(case):
+    """Where the reference's shade row would wrap a 16-bit id or overflow
+    f16 emission to inf (``luminary_tpu/render/device_scene.py``
+    ``pack_shade_packed``), the port's packer raises."""
+    scene = cornell_scene(8, 8)
+    if case == "emission":
+        lamp = next(m for m in scene.materials if m.emission_active)
+        lamp.emission_scale = 65504.0 / 15.0 * 1.01
+        scene.set_material(lamp)
+        with pytest.raises(InvalidAPIArgumentError, match="emission_r"):
+            pack_scene(scene, "cpu")
+        return
+    hg, mats, lights = _host_pack(scene)
+    field = getattr(hg, case).copy()
+    field[3] = 0xFFFF + (case == "material_id")
+    with pytest.raises(InvalidAPIArgumentError, match=case.replace("_", " ")):
+        pack_shade_rows(hg._replace(**{case: field}), mats, lights)
+
+
+def test_edge_values_pack_like_reference(packs):
+    """The largest ids and emission that fit (material 65535, instance 65534,
+    pre-scaled emission 65504) pack to the reference's words: its shade rows
+    for the same slots, with the material table padded to 65536 entries."""
+    hg, mats, lights = _host_pack(cornell_scene(32, 32))
+    dj = packs["j"]
+    top, p = 0xFFFF, hg.material_id.shape[0]
+
+    def grow(a, emission=False):
+        a = np.asarray(a)
+        out = np.concatenate([a, np.repeat(a[:1], top + 1 - a.shape[0], axis=0)])
+        if emission:
+            out[top] = F16_MAX
+        return out
+
+    mat = np.where(np.arange(p) % 2 == 1, top, hg.material_id).astype(np.int32)
+    inst = np.where(hg.instance_id >= 0, top - 1, -1).astype(np.int32)
+    got = pack_shade_rows(hg._replace(material_id=mat, instance_id=inst),
+                          {k: grow(v, k.startswith("emission")) for k, v in mats.items()},
+                          lights)
+    j_mats = dj.materials._replace(**{
+        k: grow(getattr(dj.materials, k), k.startswith("emission"))
+        for k in dj.materials._fields})
+    hot = j_pack_shade_packed(dj.geo._replace(material_id=mat, instance_id=inst),
+                              j_mats, dj.lights)[0]
+    assert same_words(got, unpack_reference_shade_rows(hot, p))
+    edge = (mat == top) & (inst >= 0)
+    assert edge.sum() > 10
+    ids = got[edge, SHP_IDS].view(np.uint32)
+    assert ((ids & 0xFFFF) == top).all() and ((ids >> 16) == top).all()
+    em = got[edge][:, [SHP_EM_RG, SHP_EM_B_ROUGH]].view(np.uint32) & 0xFFFF
+    assert (em == 0x7BFF).all()  # f16 65504

@@ -28,6 +28,9 @@ def test_import_leaves_jax_out():
         "import sys, luminary_tpu_torch\n"
         "import luminary_tpu_torch.render.renderer, luminary_tpu_torch.kernels\n"
         "import luminary_tpu_torch.testing\n"
+        "import luminary_tpu_torch.tools.proto_gather\n"
+        "import luminary_tpu_torch.tools.proto_gather2\n"
+        "import luminary_tpu_torch.tools.microbench_colext\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'luminary_tpu' or m.startswith('luminary_tpu.')]\n"
         "assert not bad, bad\n"
