@@ -34,7 +34,24 @@ Phases, one or more lines each; any failure exits non-zero:
    Renderer, with launch counts of every kernel and Mrays/s;
 5. dense tier: ``cornell_scene(512, 512, 4)`` Mrays/s;
 6. correctness: 64-spp renders of two golden scenes on the card against
-   ``tests/golden`` (RMSE/scale < 0.02, the bound of tests/test_golden.py).
+   ``tests/golden`` (RMSE/scale < 0.02, the bound of tests/test_golden.py);
+7. product path on ``benchmark_scene(1920, 1080, 4)``, each part with the
+   launch counts of kernels A, unplanar, B and C from 0: the ``Host`` with
+   no device argument (a 4-sample request polled to its image, which must
+   equal within one level the plain ``_generate_image`` run on the CPU over
+   the card's accumulators; picking at the centre must hit an instance;
+   ``get_image`` timed), the asynchronous ``Host`` on an explicit
+   ``"cuda"`` (its device worker thread answers a 2-sample request; a
+   worker's error would be raised by the poll), checkpoint/resume (2
+   samples, save, load into a fresh renderer, 2 more: bit-equal to 4
+   unbroken samples), adaptive sampling (a budget of 8 samples, the last 6
+   all in stages: a non-uniform sample map, finite radiance, kernels B and C
+   launched on the stage subsets; then at 32x18 the card's stages against
+   the plain CPU path's from the same accumulators: the sample maps equal,
+   the radiance within RMSE/scale 0.02) and the CLI (``python -m luminary_tpu_torch`` on the scene
+   written as OBJ/MTL and ``.lum``: ``-s 4 -o out.png``, then ``-b 2``; each
+   run in a subprocess through runpy, which prints that process's launch
+   counts when it exits).
 
 Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -304,6 +321,302 @@ def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
         name="transpose", route="cuda", source="luminary_tpu_torch/csrc/transpose.cu",
         replaces="tools/microbench_colext.py:78", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return out
+
+
+def _path_counts(zero=False) -> dict:
+    """The launch counts of the main path's kernels (set to 0 first when
+    ``zero``)."""
+    from luminary_tpu_torch.ops import light_tree as LT
+    from luminary_tpu_torch.ops import rowops as RO
+    from luminary_tpu_torch.ops import traverse as TR
+
+    if zero:
+        RO.gather_soa.launches = 0
+        RO.unplanar.launches = 0
+        TR.traverse_wide.launches = 0
+        TR.traverse_wide.variant_launches.update(closest=0, any_hit=0)
+        LT.light_tree_descend.launches = 0
+    return {
+        "gather_soa": RO.gather_soa.launches,
+        "unplanar": RO.unplanar.launches,
+        "traverse_wide.closest": TR.traverse_wide.variant_launches["closest"],
+        "traverse_wide.any_hit": TR.traverse_wide.variant_launches["any_hit"],
+        "light_tree_descend": LT.light_tree_descend.launches,
+    }
+
+
+# `python -m luminary_tpu_torch ARGS` as runpy runs it, printing the kernel
+# launch counts of the process (from 0 at its start) when it exits
+CLI_RUNNER = (
+    "import atexit, json, runpy, sys\n"
+    "import chip_smoke\n"
+    "atexit.register(lambda: print('KERNEL_LAUNCHES ' + json.dumps("
+    "chip_smoke._path_counts()), flush=True))\n"
+    "sys.argv[0] = 'luminary_tpu_torch'\n"
+    "runpy.run_module('luminary_tpu_torch', run_name='__main__', "
+    "alter_sys=True)\n")
+
+
+def product_path(repo, dev, smi, tree) -> dict:
+    """Phase 7: the user-facing path on the tree-tier bench scene at 1080p.
+    Every failed check raises."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from luminary_tpu_torch.host.host import OUTPUT_HANDLE_INVALID, Host
+    from luminary_tpu_torch.io.png import read_png
+    from luminary_tpu_torch.io.wavefront import read_obj_file
+    from luminary_tpu_torch.render.renderer import (
+        AccumState,
+        Renderer,
+        _generate_image,
+    )
+    from luminary_tpu_torch.testing import benchmark_scene, write_obj_scene
+
+    W, H = 1920, 1080
+    out = {}
+    work = os.path.join(repo, "build", "smoke_product")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # -- Host, no device argument: the card --
+    host = Host()
+    host.scene = benchmark_scene(W, H, max_depth=4)
+    t0 = time.monotonic()
+    r = host.renderer
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t0
+    assert r.device.type == "cuda", r.device
+    _path_counts(zero=True)
+    t0 = time.monotonic()
+    promise = host.request_output(4)
+    handle, polls = OUTPUT_HANDLE_INVALID, 0
+    while handle == OUTPUT_HANDLE_INVALID:
+        handle = host.try_await_output(promise)
+        polls += 1
+    host_s = time.monotonic() - t0
+    counts = _path_counts()
+    img = host.get_image(handle)
+    assert img.dtype == np.uint8 and img.shape == (H, W, 3), (img.dtype, img.shape)
+    assert int(img.max()) > 0, "the Host's image is black"
+    assert host.get_image_meta(handle)["sample_count"] == 4
+    acc_cpu = AccumState(*(t.cpu() for t in r.accum))
+    plain = _generate_image(acc_cpu, *r.image_args()).numpy()
+    diff = np.abs(img.astype(np.int16) - plain.astype(np.int16))
+    assert int(diff.max()) <= 1, int(diff.max())
+    img_ms = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        r.get_image()
+        img_ms.append((time.monotonic() - t0) * 1e3)
+    info = host.get_pixel_info(W // 2, H // 2)
+    assert info is not None and info["pixel_query_is_valid"] and \
+        info["instance_id"] >= 0, info
+    dev_info = host.get_device_info(0)
+    host_sps = host_s / 4
+    log("[host] Host() on %s: pack %.2f s; request_output(4) in %d polls, "
+        "%.3f s: %.4f s/sample (Renderer.render_samples in phase 4: %.4f "
+        "s/sample); launches %s; image uint8 %s, mean %.2f, within one "
+        "level of the plain CPU image (%d values differ by 1); pick (%d, %d) "
+        "-> instance %d at depth %.3f | %s" % (
+            dev_info["name"], pack_s, polls, host_s, host_sps,
+            tree["seconds"] / tree["samples"], counts, img.shape,
+            float(img.mean()), int((diff == 1).sum()), W // 2, H // 2,
+            info["instance_id"], info["depth"], smi))
+    log("[get_image] 1080p on the card: %.3f ms median of 5 (min %.3f), "
+        "host copy included | %s" % (float(np.median(img_ms)), min(img_ms),
+                                     smi))
+    assert all(v > 0 for v in counts.values()), counts
+    out["host"] = dict(pack_s=pack_s, seconds=host_s, s_per_sample=host_sps,
+                       renderer_s_per_sample=tree["seconds"] / tree["samples"],
+                       polls=polls, launches=counts,
+                       image_mean=float(img.mean()),
+                       off_by_one=int((diff == 1).sum()),
+                       get_image_ms=img_ms, pick=info)
+    host.destroy()
+    del host, r, acc_cpu
+    torch.cuda.empty_cache()
+
+    # -- the asynchronous Host on an explicit "cuda": its device worker
+    # thread renders the preview pyramid, then the samples --
+    host = Host(device="cuda", asynchronous=True)
+    host.scene = benchmark_scene(W, H, max_depth=4)
+    _path_counts(zero=True)
+    t0 = time.monotonic()
+    promise = host.request_output(2)
+    handle, polls = OUTPUT_HANDLE_INVALID, 0
+    while handle == OUTPUT_HANDLE_INVALID:
+        assert time.monotonic() - t0 < 300, "the asynchronous Host gave no image"
+        handle = host.try_await_output(promise)  # raises a worker's error
+        polls += 1
+        time.sleep(0.01)
+    async_s = time.monotonic() - t0
+    counts = _path_counts()
+    host.check_errors()
+    r = host.renderer
+    img = host.get_image(handle)
+    n_async = host.get_image_meta(handle)["sample_count"]
+    assert r.device == torch.device("cuda", torch.cuda.current_device()), \
+        r.device
+    assert img.dtype == np.uint8 and img.shape == (H, W, 3), (img.dtype, img.shape)
+    assert int(img.max()) > 0 and n_async >= 2, n_async
+    assert all(v > 0 for v in counts.values()), counts
+    log("[host async] Host(device='cuda', asynchronous=True): "
+        "request_output(2) answered by the device worker in %.3f s (pack and "
+        "preview pyramid included, %d polls), %d samples, image mean %.2f; "
+        "launches %s | %s" % (async_s, polls, n_async, float(img.mean()),
+                              counts, smi))
+    out["host_async"] = dict(seconds=async_s, polls=polls, samples=n_async,
+                             image_mean=float(img.mean()), launches=counts)
+    host.destroy()
+    del host, r
+    torch.cuda.empty_cache()
+
+    # -- checkpoint / resume, bit for bit --
+    ckpt = os.path.join(work, "ckpt.npz")
+    ra = Renderer(benchmark_scene(W, H, max_depth=4), device=dev)
+    ra.render_samples(2)
+    ra.save_checkpoint(ckpt)
+    ra.render_samples(2)
+    rb = Renderer(benchmark_scene(W, H, max_depth=4), device=dev)
+    rb.load_checkpoint(ckpt)
+    _path_counts(zero=True)
+    rb.render_samples(2)
+    counts = _path_counts()
+    same = all(torch.equal(a, b) for a, b in zip(ra.accum, rb.accum))
+    log("[checkpoint] 2 samples, save, load into a fresh renderer, 2 more: "
+        "accumulators bit-equal to 4 unbroken samples: %s; launches %s | %s"
+        % (same, counts, smi))
+    assert same, "a resumed render differs from an unbroken one"
+    assert all(v > 0 for v in counts.values()), counts
+    out["checkpoint"] = dict(bit_equal=same, launches=counts)
+    del rb
+    torch.cuda.empty_cache()
+
+    # -- adaptive sampling: 2 uniform samples, then 6 in stages --
+    st = ra.scene.get_entity("settings")
+    st.enable_adaptive_sampling = True
+    ra.scene.set_entity("settings", st)
+    ra.render_samples(2)
+    _path_counts(zero=True)
+    t0 = time.monotonic()
+    ra.render_samples(6)
+    dt = time.monotonic() - t0
+    counts = _path_counts()
+    cnt = ra.accum.sample_count[: W * H].cpu().numpy()
+    finite = bool(torch.isfinite(ra.accum.radiance).all())
+    levels = np.unique(cnt)
+    mrays = ra._last_rays_traced / dt / 1e6
+    log("[adaptive] budget 2 + 6 samples at 1080p: stages in %.3f s, %.3f "
+        "Mrays/s (%.0f rays); sample counts %d..%d over %d levels, mean %.3f; "
+        "finite=%s; launches on the stage subsets %s | %s" % (
+            dt, mrays, ra._last_rays_traced, int(cnt.min()), int(cnt.max()),
+            len(levels), float(cnt.mean()), finite, counts, smi))
+    assert len(levels) > 1, "adaptive sampling left a uniform sample map"
+    assert finite
+    assert counts["traverse_wide.closest"] > 0 and \
+        counts["traverse_wide.any_hit"] > 0 and \
+        counts["light_tree_descend"] > 0, counts
+    out["adaptive"] = dict(seconds=dt, mrays=mrays,
+                           rays=ra._last_rays_traced, launches=counts,
+                           count_min=int(cnt.min()), count_max=int(cnt.max()),
+                           count_mean=float(cnt.mean()), levels=len(levels))
+    del ra
+    torch.cuda.empty_cache()
+
+    # -- adaptive stages on the card against the plain CPU path: the same
+    # 2-sample accumulators, then a budget of 6 samples each, at 32x18 (a
+    # 144-lane stage subset: kernel B's last packet is partly filled) --
+    def small():
+        sc = benchmark_scene(32, 18, max_depth=4)
+        st = sc.get_entity("settings")
+        st.enable_adaptive_sampling = True
+        sc.set_entity("settings", st)
+        return sc
+
+    rg = Renderer(small(), device=dev)
+    rg.render_samples(2)
+    rp = Renderer(small(), device="cpu")
+    rp.accum = AccumState(*(t.cpu() for t in rg.accum))
+    _path_counts(zero=True)
+    rg.render_samples(6)
+    counts = _path_counts()
+    t0 = time.monotonic()
+    rp.render_samples(6)
+    cpu_s = time.monotonic() - t0
+    cnt_g = rg.accum.sample_count[: 32 * 18].cpu().numpy()
+    cnt_p = rp.accum.sample_count[: 32 * 18].numpy()
+    rad_g, rad_p = rg.get_radiance(), rp.get_radiance()
+    rel = float(np.sqrt(np.mean((rad_g - rad_p) ** 2))
+                / (np.abs(rad_p).mean() + 1e-6))
+    map_diff = int((cnt_g != cnt_p).sum())
+    log("[adaptive vs cpu] 32x18, 2 samples then a budget of 6 in stages: "
+        "sample maps differ on %d of %d pixels (%d levels on the card); "
+        "radiance RMSE/scale %.3g (bound 0.02); the plain CPU stages took "
+        "%.2f s; card launches %s | %s" % (
+            map_diff, cnt_g.size, len(np.unique(cnt_g)), rel, cpu_s, counts,
+            smi))
+    assert len(np.unique(cnt_g)) > 1, "adaptive sampling left a uniform map"
+    assert map_diff == 0, "the card's adaptive sample map differs from the CPU's"
+    assert np.isfinite(rad_g).all() and rel < 0.02, rel
+    assert counts["traverse_wide.closest"] > 0 and \
+        counts["traverse_wide.any_hit"] > 0 and \
+        counts["light_tree_descend"] > 0, counts
+    out["adaptive_vs_cpu"] = dict(map_diff=map_diff, rmse_over_scale=rel,
+                                  levels=len(np.unique(cnt_g)), cpu_s=cpu_s,
+                                  launches=counts)
+    del rg, rp
+
+    # -- the CLI on the scene written as OBJ/MTL + .lum --
+    t0 = time.monotonic()
+    lum = write_obj_scene(benchmark_scene(W, H, max_depth=4), work, "bench")
+    written = read_obj_file(os.path.join(work, "bench.obj"))
+    emitters = {i for i, m in enumerate(written.materials) if m.emission_active}
+    n_tris = written.mesh.num_triangles
+    n_emit = int(np.isin(written.mesh.material_ids, list(emitters)).sum())
+    write_s = time.monotonic() - t0
+    assert n_tris > 128 and n_emit >= 64, (n_tris, n_emit)
+    env = dict(os.environ, PYTHONPATH=repo)
+    runs = {}
+    for label, args in (("render", ["-s", "4", "-o", "out.png"]),
+                        ("bench", ["-b", "2", "smoke"])):
+        t0 = time.monotonic()
+        cp = subprocess.run([sys.executable, "-c", CLI_RUNNER, lum] + args,
+                            cwd=work, env=env, capture_output=True, text=True,
+                            timeout=600)
+        wall = time.monotonic() - t0
+        m = re.search(r"^KERNEL_LAUNCHES (.*)$", cp.stdout, re.M)
+        counts = json.loads(m.group(1)) if m else {}
+        runs[label] = dict(rc=cp.returncode, wall_s=wall, launches=counts,
+                           stdout=cp.stdout[-2000:], stderr=cp.stderr[-4000:])
+        assert cp.returncode == 0, (label, cp.returncode, cp.stderr[-4000:])
+        assert counts and all(v > 0 for v in counts.values()), (label, counts)
+    png = read_png(os.path.join(work, "out.png"))
+    assert png.shape[:2] == (H, W) and int(png.max()) > 0, png.shape
+    m = re.search(r"rendered 4 spp in ([0-9.]+) s", runs["render"]["stdout"])
+    render_s = float(m.group(1)) if m else float("nan")
+    ladder = [os.path.exists(os.path.join(work, "Bench-%d-smoke.png" % k))
+              for k in (1, 2, 3, 4)]
+    csv = os.path.join(work, "BenchResults-smoke.txt")
+    assert all(ladder) and os.path.exists(csv), (ladder, os.path.exists(csv))
+    with open(csv) as f:
+        rows = f.read().split()
+    log("[cli] scene as OBJ/MTL + .lum (%d triangles, %d emitter "
+        "triangles) in %.2f s; `-s 4 -o out.png`: rc 0, wall %.2f s, "
+        "render %.3f s (%.4f s/sample; the renderer's pack included), PNG "
+        "%dx%d mean %.2f, launches %s; `-b 2 smoke`: rc 0, wall %.2f s, "
+        "ladder %s, launches %s | %s" % (
+            n_tris, n_emit, write_s, runs["render"]["wall_s"], render_s,
+            render_s / 4, png.shape[1], png.shape[0], float(png.mean()),
+            runs["render"]["launches"], runs["bench"]["wall_s"], rows[1:],
+            runs["bench"]["launches"], smi))
+    out["cli"] = dict(runs=runs, triangles=n_tris, emitter_triangles=n_emit,
+                      render_s=render_s, s_per_sample=render_s / 4,
+                      ladder=rows[1:])
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -965,21 +1278,11 @@ def main() -> int:
     # ---- 4. main path: tree-1080p through the Renderer ----
     warm, timed = 2, 6
     r.render_samples(warm)
-    RO.gather_soa.launches = 0
-    RO.unplanar.launches = 0
-    TR.traverse_wide.launches = 0
-    TR.traverse_wide.variant_launches.update(closest=0, any_hit=0)
-    LT.light_tree_descend.launches = 0
+    _path_counts(zero=True)
     t0 = time.monotonic()
     r.render_samples(timed)
     dt = time.monotonic() - t0
-    launches = {
-        "gather_soa": RO.gather_soa.launches,
-        "unplanar": RO.unplanar.launches,
-        "traverse_wide.closest": TR.traverse_wide.variant_launches["closest"],
-        "traverse_wide.any_hit": TR.traverse_wide.variant_launches["any_hit"],
-        "light_tree_descend": LT.light_tree_descend.launches,
-    }
+    launches = _path_counts()
     rays = r._last_rays_per_sample
     mrays = rays * timed / dt / 1e6
     npix = 1920 * 1080
@@ -1032,6 +1335,10 @@ def main() -> int:
             % (gname, rel))
         assert np.isfinite(img).all() and rel < 0.02, (gname, rel)
     report["golden_rmse_over_scale"] = golden
+
+    # ---- 7. product path: Host, checkpoint, adaptive, CLI at 1080p ----
+    product = product_path(repo, dev, smi, report["tree_1080p"])
+    report["product_path"] = product
     report["kernels"] = kern
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -8,11 +8,16 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the first CUDA card; without one this raises instead of
-    quietly running the plain CPU path. Any explicit device is taken as is."""
+    quietly running the plain CPU path. Any explicit device is taken as is,
+    except that ``"cuda"`` gets the current card's index, so that a worker
+    thread can make it its own current device."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

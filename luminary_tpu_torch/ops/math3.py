@@ -16,3 +16,7 @@ def length(v: torch.Tensor) -> torch.Tensor:
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v * torch.reciprocal(torch.clamp(length(v), min=eps))[..., None]
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]

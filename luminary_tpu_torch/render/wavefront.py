@@ -63,6 +63,7 @@ from .device_scene import (
     SHP_EM_RG,
     SHP_FACE,
     SHP_FLAGS,
+    SHP_IDS,
     SHP_METAL_IOR,
     SHP_N0,
     SHP_N1,
@@ -86,6 +87,16 @@ class RenderConfig(NamedTuple):
     blue_noise: bool = True
     aerial: bool = False
     sun_ris: bool = False
+
+
+class GBufferMeta(NamedTuple):
+    """Primary-hit metadata for picking, written at depth 0 (misses keep
+    depth MISS_DIST and ids -1)."""
+
+    depth: torch.Tensor  # f32 [N]
+    instance_id: torch.Tensor  # i32 [N]
+    material_id: torch.Tensor  # i32 [N]
+    rel_hit_pos: torch.Tensor  # f32 [N, 3], hit position less the camera's
 
 
 _RAY_EPS = 1e-3
@@ -154,10 +165,16 @@ def _lum(r, g, b):
 
 
 def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
-                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, sample_id):
+                  pixel_x: torch.Tensor, pixel_y: torch.Tensor, sample_id,
+                  with_gbuffer: bool = True):
     """Trace one full sample for the pixel wavefront → (radiance [N, 3],
-    rays_traced 0-d f32: closest rays per depth + sun and light shadow rays,
-    the accounting of ``bench.py``)."""
+    gbuffer GBufferMeta, rays_traced 0-d f32: closest rays per depth + sun
+    and light shadow rays, the accounting of ``bench.py``).
+
+    ``sample_id`` is one id for every lane (an int or a 0-d tensor) or an
+    ``[N]`` tensor of per-lane ids (adaptive stages); ids are u32 words.
+    With ``with_gbuffer=False`` the gbuffer is not built and comes back
+    None: eager ops run whether or not their result is used."""
     geo = scene.geo
     mats = scene.materials
     lights = scene.lights
@@ -166,8 +183,11 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     n = pixel_x.shape[0]
     pixel_id = (pixel_y.to(torch.int64) * config.width
                 + pixel_x.to(torch.int64)) & 0xFFFFFFFF
-    sample_id = torch.as_tensor(int(sample_id) & 0xFFFFFFFF, dtype=torch.int64,
-                                device=dev)
+    if isinstance(sample_id, torch.Tensor):
+        sample_id = sample_id.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    else:
+        sample_id = torch.as_tensor(int(sample_id) & 0xFFFFFFFF,
+                                    dtype=torch.int64, device=dev)
     bn = blue_base(pixel_x, pixel_y) if config.blue_noise else None
 
     origin, direction = generate_camera_rays(
@@ -191,6 +211,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     prev_sun_nee = false
     prev_sun2 = false
     prev_light_nee = false
+    gbuffer = None
 
     sun_radiance = sun_solid_angle_radiance(sky)  # f32 [3]
     sun_rad3 = (sun_radiance[0], sun_radiance[1], sun_radiance[2])
@@ -269,6 +290,22 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             nee_sel_pdf = lights.slot_select_pdf[sl]
             nee_area = lights.slot_area[sl]
         wo = -direction
+        if depth == 0 and with_gbuffer:
+            if use_rows:  # mat_id u16 | (instance_id + 1) u16
+                ids = srow[SHP_IDS]
+                mat_id0, inst0 = ids & 0xFFFF, ((ids >> 16) & 0xFFFF) - 1
+            else:
+                mat_id0, inst0 = mat_id, geo.instance_id[sl]
+            gbuffer = GBufferMeta(
+                depth=torch.where(hit_lane, hit.t, MISS_DIST),
+                instance_id=torch.where(hit_lane, inst0.to(torch.int32), -1),
+                material_id=torch.where(hit_lane, mat_id0.to(torch.int32), -1),
+                rel_hit_pos=torch.where(
+                    hit_lane[:, None],
+                    torch.stack([hit_pos.x - cam.pos[0], hit_pos.y - cam.pos[1],
+                                 hit_pos.z - cam.pos[2]], dim=-1),
+                    0.0),
+            )
 
         # ---- stochastic alpha test (opacity is 1 without cutouts) ----
         r_alpha = random_1d(RandomTarget.ALPHA_TEST, pixel_id, sample_id,
@@ -499,4 +536,4 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     rad_r = rad_r + miss_thr_r * sky_r * add
     rad_g = rad_g + miss_thr_g * sky_g * add
     rad_b = rad_b + miss_thr_b * sky_b * add
-    return torch.stack([rad_r, rad_g, rad_b], dim=-1), rays_traced
+    return torch.stack([rad_r, rad_g, rad_b], dim=-1), gbuffer, rays_traced

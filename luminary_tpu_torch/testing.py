@@ -232,3 +232,61 @@ def benchmark_scene(
     sky.altitude = 0.6
     scene.set_entity("sky", sky)
     return scene
+
+
+def write_obj_scene(scene: Scene, directory: str, name: str = "scene") -> str:
+    """Write a scene's meshes and materials as one OBJ/MTL pair (emitters as
+    ``Ke``, per-corner normals as ``vn``) and its settings, camera and sky as
+    a v4 ``.lum`` that loads it; returns the ``.lum`` path. Every instance
+    must be untransformed (the ``.lum`` MESHFILE spawns one such instance)."""
+    import os
+
+    from .io.lum import LumFileContent, write_lum_file
+
+    os.makedirs(directory, exist_ok=True)
+    obj_path = os.path.join(directory, name + ".obj")
+    mtl_name = name + ".mtl"
+    with open(os.path.join(directory, mtl_name), "w") as f:
+        for m in scene.materials:
+            f.write(f"newmtl m{m.id}\n")
+            f.write("Kd %.9g %.9g %.9g\nd %.9g\n" % tuple(m.albedo))
+            f.write("Ke %.9g %.9g %.9g\n" % tuple(
+                c if m.emission_active else 0.0 for c in m.emission))
+            f.write("Pr %.9g\nPm %d\nNi %.9g\n" % (
+                m.roughness, int(m.metallic), m.refraction_index))
+    parts, v_off, n_off = [f"mtllib {mtl_name}\n"], 0, 0
+    for inst in scene.instances:
+        if not inst.active:
+            continue
+        assert (tuple(inst.position) == (0.0, 0.0, 0.0)
+                and tuple(inst.rotation) == (0.0, 0.0, 0.0)
+                and tuple(inst.scale) == (1.0, 1.0, 1.0)), inst
+        mesh = scene.meshes[inst.mesh_id]
+        v = np.asarray(mesh.vertices, np.float32)
+        t = np.asarray(mesh.triangles, np.int64)
+        n = np.asarray(mesh.normals, np.float32).reshape(-1, 3)
+        parts.append("".join("v %.9g %.9g %.9g\n" % tuple(p) for p in v))
+        parts.append("".join("vn %.9g %.9g %.9g\n" % tuple(p) for p in n))
+        mat = np.asarray(mesh.material_ids, np.int64)
+        for mid in np.unique(mat):
+            parts.append(f"usemtl m{int(mid)}\n")
+            for k in np.nonzero(mat == mid)[0]:
+                a, b, c = t[k] + 1 + v_off
+                na = 3 * k + 1 + n_off
+                parts.append(f"f {a}//{na} {b}//{na + 1} {c}//{na + 2}\n")
+        v_off += len(v)
+        n_off += len(n)
+    with open(obj_path, "w") as f:
+        f.write("".join(parts))
+    lum_path = os.path.join(directory, name + ".lum")
+    write_lum_file(lum_path, LumFileContent(
+        obj_file_paths=[obj_path],
+        settings=scene.get_entity("settings"),
+        camera=scene.get_entity("camera"),
+        ocean=scene.get_entity("ocean"),
+        sky=scene.get_entity("sky"),
+        cloud=scene.get_entity("cloud"),
+        fog=scene.get_entity("fog"),
+        particles=scene.get_entity("particles"),
+    ))
+    return lum_path

@@ -31,6 +31,24 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.tools.proto_gather\n"
         "import luminary_tpu_torch.tools.proto_gather2\n"
         "import luminary_tpu_torch.tools.microbench_colext\n"
+        "import luminary_tpu_torch.tools.time_render\n"
+        "import luminary_tpu_torch.io, luminary_tpu_torch.io.qoi\n"
+        "import luminary_tpu_torch.io.lum_v5\n"
+        "import luminary_tpu_torch.host.host\n"
+        "import luminary_tpu_torch.host.queue_worker\n"
+        "import luminary_tpu_torch.frontend.cli\n"
+        "import luminary_tpu_torch.frontend.benchmark\n"
+        "import luminary_tpu_torch.ops.post, luminary_tpu_torch.ops.tonemap\n"
+        "import luminary_tpu_torch.render.adaptive\n"
+        # python -m luminary_tpu_torch --help: runs __main__ and the CLI
+        "import contextlib, io, runpy\n"
+        "sys.argv = ['luminary_tpu_torch', '--help']\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as f:\n"
+        "    try:\n"
+        "        runpy.run_module('luminary_tpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "assert '--device' in f.getvalue()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'luminary_tpu' or m.startswith('luminary_tpu.')]\n"
         "assert not bad, bad\n"
@@ -56,6 +74,17 @@ def test_renderer_without_device_needs_a_card(monkeypatch, entry):
             "pack_camera": lambda: pack_camera(scene.camera)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+@pytest.mark.parametrize("asked, index", [("cuda", 3), ("cuda:1", 1)])
+def test_explicit_cuda_device_gets_an_index(monkeypatch, asked, index):
+    """An explicit "cuda" resolves to the current card's index, so that the
+    asynchronous Host's worker thread can make it its current device."""
+    from luminary_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert resolve_device(asked) == torch.device("cuda", index)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def _with(setting):
@@ -172,3 +201,76 @@ def test_cpu_render_launches_no_kernel():
     r.render_samples(1)
     assert (gather_soa.launches, traverse_wide.launches,
             light_tree_descend.launches) == before
+
+
+def test_host_and_cli_without_device_need_a_card(monkeypatch, tmp_path):
+    """Host() and the CLI without --device want the card and raise on a
+    machine without one, before any work."""
+    from luminary_tpu_torch.frontend import cli
+    from luminary_tpu_torch.host.host import Host
+    from luminary_tpu_torch.testing import write_obj_scene
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Host()
+    lum = write_obj_scene(cornell_scene(8, 8), str(tmp_path), "box")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main([lum, "-s", "1", "-o", str(tmp_path / "o.png")])
+    assert not (tmp_path / "o.png").exists()
+
+
+@pytest.mark.parametrize("feature", ["mesh", "cli_mesh", "set_device_enable",
+                                     "profile_render"])
+def test_unported_host_features_raise(tmp_path, feature):
+    """What the port lacks raises NotImplementedError naming its ROADMAP
+    item; nothing falls back to a quiet single-device run."""
+    from luminary_tpu_torch.frontend import cli
+    from luminary_tpu_torch.host.host import Host
+    from luminary_tpu_torch.testing import write_obj_scene
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        if feature == "mesh":
+            Host(mesh=2, device="cpu")
+        elif feature == "cli_mesh":
+            lum = write_obj_scene(cornell_scene(8, 8), str(tmp_path), "box")
+            cli.main([lum, "--mesh", "2", "--device", "cpu", "-s", "1"])
+        elif feature == "set_device_enable":
+            Host(device="cpu").set_device_enable(0, False)
+        else:
+            Host(device="cpu").profile_render(1)
+    assert Host(mesh=1, device="cpu").get_device_count() == 1
+
+
+def test_adaptive_sampling_is_not_ignored():
+    """With enable_adaptive_sampling the port renders adaptively: after the
+    uniform stage 0 (2 samples) a 1-sample budget goes where the JAX
+    package's allocation on the same accumulators sends it."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from luminary_tpu.render.adaptive import allocate_stage_tasks, block_error_map
+
+    s = cornell_scene(16, 16, max_depth=2)
+    st = s.get_entity("settings")
+    st.enable_adaptive_sampling = True
+    s.set_entity("settings", st)
+    r = Renderer(s, device="cpu")
+    r.render_samples(2)
+    acc = [x.numpy().copy() for x in r.accum]
+    assert (acc[2][:256] == 2).all()
+    r.render_samples(1)
+    got = r.accum.sample_count.numpy()[:256]
+    assert len(np.unique(got)) > 1, "adaptive sampling was ignored"
+
+    # the JAX allocation: one stage, one 64-lane slice (n_pad // 4) of
+    # max(update_interval // 8, 2) = 4 rounds
+    err = np.asarray(block_error_map(
+        jnp.asarray(acc[0]), jnp.asarray(acc[1]), jnp.asarray(acc[2]), 16, 16,
+        bool(st.adaptive_sampling_exposure_aware), jnp.float32(1.0)))
+    pix, rank = allocate_stage_tasks(
+        err, 16, 16, st.adaptive_sampling_avg_sampling_rate,
+        st.adaptive_sampling_max_sampling_rate, budget_tasks=64)
+    if pix.size < 64:  # wrapped to a whole slice, as the renderer pads
+        pix = np.concatenate([pix] * (-(-64 // pix.size)))
+    want = acc[2][:256] + 4 * np.bincount(pix[:64], minlength=256)
+    np.testing.assert_array_equal(got, want)

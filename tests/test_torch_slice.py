@@ -149,7 +149,8 @@ def test_aerial_fetch_on_reference_tables(fx):
 @pytest.mark.parametrize("pack", ["carried", "own"])
 def test_one_sample_matches_reference(fx, pack):
     scene = fx[pack]
-    rad, rays = render_sample(scene, fx["cam"], fx["cfg"], fx["px"], fx["py"], 0)
+    rad, _gbuf, rays = render_sample(scene, fx["cam"], fx["cfg"], fx["px"],
+                                     fx["py"], 0)
     n = W * H
     img = rad.numpy()[:n]
     ref = fx["ref_img"]
@@ -160,3 +161,23 @@ def test_one_sample_matches_reference(fx, pack):
     # the same rays were traced, up to lanes that an ulp moved across a
     # sampling decision
     assert abs(float(rays) - fx["rays"]) <= 0.01 * fx["rays"]
+
+
+@pytest.mark.parametrize("pack", ["carried", "own"])
+def test_gbuffer_matches_reference(fx, pack):
+    """The primary-hit metadata that picking reads: the same instance and
+    material on every lane, depth and hit position within f32 rounding."""
+    _rad, g, _rays = render_sample(fx[pack], fx["cam"], fx["cfg"], fx["px"],
+                                   fx["py"], 0)
+    ref = fx["r"].gbuffer
+    n = W * H
+    np.testing.assert_array_equal(g.instance_id.numpy()[:n],
+                                  np.asarray(ref.instance_id)[:n])
+    np.testing.assert_array_equal(g.material_id.numpy()[:n],
+                                  np.asarray(ref.material_id)[:n])
+    np.testing.assert_allclose(g.depth.numpy()[:n], np.asarray(ref.depth)[:n],
+                               rtol=1e-5)
+    np.testing.assert_allclose(g.rel_hit_pos.numpy()[:n],
+                               np.asarray(ref.rel_hit_pos)[:n], rtol=1e-4,
+                               atol=1e-4)
+    assert (g.instance_id.numpy()[:n] >= 0).any()
