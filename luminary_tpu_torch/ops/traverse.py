@@ -12,6 +12,12 @@ package's packet walk ``_traverse_wide`` (16 rays per packet). Kernel B's
 box test is conservative (:func:`slab_admits` mirrors it); the plain one's,
 like the JAX one's, is not. The TPU-only parts of the Pallas walk (XLA-level
 row fetch, packet compaction, lockstep shrink phases) have no counterpart.
+
+Cutout triangles (alpha < 1) stay in the closest-hit table, where the
+integrator alpha-tests them; occlusion queries walk the shadow table, the
+same nodes with those triangles degenerated out of the leaves, and
+:func:`trace_transmission` multiplies in their transparency by a dense pass
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -44,9 +50,17 @@ class DeviceBVH:
     """Unified 16-wide BVH table + leaf-slot-ordered triangle geometry.
 
     rows f32 [M + B, 128]: node rows then leaf rows. tri_v0/e1/e2: per-slot
-    Vec3 tables ([P] each). dense_tris f32 [T, 12] / dense_slot i32 [T]:
-    the compacted valid slots of small scenes (None above 4 x 128 slots).
-    depth (max interior depth) and num_nodes are host ints.
+    Vec3 tables ([P] each). dense_tris f32 [T, 12] (v0, e1, e2, alpha, pad)
+    / dense_slot i32 [T]: the compacted valid slots of small scenes (None
+    above 4 x 128 slots). depth (max interior depth) and num_nodes are host
+    ints.
+
+    Cutouts (slots of alpha < 1): ``rows_shadow`` is ``rows`` with those
+    triangles degenerated out of the leaf rows (the any-hit walk sees opaque
+    geometry only) and ``cut_tris`` f32 [Tc, 12 | 44] holds them for the
+    transmission pass: v0, e1, e2, alpha, pad, and with a micro-alpha grid
+    the 64 u16 cell alphas in 32 words at cols 12:44. Both None without
+    cutouts.
     """
 
     rows: torch.Tensor
@@ -58,6 +72,12 @@ class DeviceBVH:
     bounds: torch.Tensor
     depth: int
     num_nodes: int
+    rows_shadow: torch.Tensor | None = None
+    cut_tris: torch.Tensor | None = None
+
+    @property
+    def has_cutouts(self) -> bool:
+        return self.cut_tris is not None
 
 
 class Hit(NamedTuple):
@@ -72,9 +92,11 @@ class Hit(NamedTuple):
 
 
 def pack_device_bvh(wide, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-                    device) -> DeviceBVH:
+                    device, slot_alpha=None, slot_cut_grid=None) -> DeviceBVH:
     """WideBVH (bvh/wide.py) + slot triangles [P, 3] → DeviceBVH on
-    ``device`` (numpy packing, one upload per table)."""
+    ``device`` (numpy packing, one upload per table). ``slot_alpha`` f32 [P]
+    (material alpha x mean texture alpha) marks the cutout slots;
+    ``slot_cut_grid`` u16 [P, 64] is their 8x8 barycentric-cell mean alpha."""
     from ..bvh.wide import pack_leaf_rows
 
     wide = pack_leaf_rows(wide, v0, e1, e2)
@@ -84,6 +106,26 @@ def pack_device_bvh(wide, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
 
     def v3(a):
         return Vec3(t(a[..., 0]), t(a[..., 1]), t(a[..., 2]))
+
+    rows_shadow = cut_tris = None
+    if slot_alpha is not None and (slot_alpha < 1.0).any():
+        cut = slot_alpha < 1.0
+        keep = (~cut).astype(np.float32)[:, None]
+        shadow = pack_leaf_rows(wide, v0, e1 * keep, e2 * keep)
+        rows_shadow = t(np.concatenate([wide.node_rows, shadow.leaf_rows],
+                                       axis=0).astype(np.float32))
+        ids = np.nonzero(cut)[0]
+        tc = (len(ids) + 7) // 8 * 8
+        ct = np.zeros((tc, 44 if slot_cut_grid is not None else 12), np.float32)
+        ct[:len(ids), 0:3] = v0[ids]
+        ct[:len(ids), 3:6] = e1[ids]
+        ct[:len(ids), 6:9] = e2[ids]
+        ct[:len(ids), 9] = slot_alpha[ids]
+        if slot_cut_grid is not None:
+            g = np.ascontiguousarray(slot_cut_grid[ids], np.uint16)
+            ct[:len(ids), 12:44] = g.view(np.uint32).reshape(len(ids), 32).view(
+                np.float32)
+        cut_tris = t(ct)
 
     p = v0.shape[0]
     dense_tris = dense_slot = None
@@ -100,6 +142,7 @@ def pack_device_bvh(wide, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
             dt[:n_t, 0:3] = v0[valid]
             dt[:n_t, 3:6] = e1[valid]
             dt[:n_t, 6:9] = e2[valid]
+            dt[:n_t, 9] = slot_alpha[valid] if slot_alpha is not None else 1.0
             ds[:n_t] = valid
         dense_tris, dense_slot = t(dt), t(ds)
     rows = np.concatenate([wide.node_rows, wide.leaf_rows], axis=0)
@@ -113,6 +156,7 @@ def pack_device_bvh(wide, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         tri_v0=v3(v0), tri_e1=v3(e1), tri_e2=v3(e2),
         dense_tris=dense_tris, dense_slot=dense_slot, bounds=t(bounds),
         depth=int(wide.depth), num_nodes=int(wide.num_nodes),
+        rows_shadow=rows_shadow, cut_tris=cut_tris,
     )
 
 
@@ -435,7 +479,10 @@ def _launch(rows, num_nodes, depth, origin, direction, t_max, active, any_hit,
         kernels.stream_handle(dev))
     kernels.check(rc, "traverse_wide")
     traverse_wide.launches += 1
-    traverse_wide.variant_launches["any_hit" if any_hit else "closest"] += 1
+    variant = "any_hit" if any_hit else "closest"
+    traverse_wide.variant_launches[variant] += 1
+    key = (variant, rows.data_ptr())
+    traverse_wide.table_launches[key] = traverse_wide.table_launches.get(key, 0) + 1
     if stats is not None:
         stats["node_tests"], stats["tri_tests"] = (int(v) for v in counters.cpu())
     if any_hit:
@@ -466,6 +513,8 @@ def traverse_wide(rows: torch.Tensor, num_nodes: int, depth: int,
 
 traverse_wide.launches = 0
 traverse_wide.variant_launches = {"closest": 0, "any_hit": 0}
+# launches by (variant, the table's data pointer): the main and shadow tables
+traverse_wide.table_launches = {}
 
 
 def _full(n, value, dev):
@@ -492,8 +541,9 @@ def trace_closest(bvh: DeviceBVH, origin: Vec3, direction: Vec3,
 
 def trace_occluded(bvh: DeviceBVH, origin: Vec3, direction: Vec3, t_max,
                    active=None) -> torch.Tensor:
-    """Occlusion query: True where any geometry lies within t_max;
-    inactive lanes report unoccluded."""
+    """Occlusion query: True where opaque geometry lies within t_max (cutout
+    triangles are left to :func:`trace_transmission`); inactive lanes
+    report unoccluded."""
     n = origin.x.shape[0]
     dev = origin.x.device
     t_max = (_full(n, t_max, dev) if not isinstance(t_max, torch.Tensor)
@@ -504,5 +554,55 @@ def trace_occluded(bvh: DeviceBVH, origin: Vec3, direction: Vec3, t_max,
             and bvh.dense_tris.shape[0] <= DENSE_MAX_SLOTS):
         hit = _trace_dense(bvh, origin, direction, t_max, any_hit=True)
         return active & (hit.slot >= 0)
-    return active & traverse_wide(bvh.rows, bvh.num_nodes, bvh.depth, origin,
+    rows = bvh.rows_shadow if bvh.rows_shadow is not None else bvh.rows
+    return active & traverse_wide(rows, bvh.num_nodes, bvh.depth, origin,
                                   direction, t_max, active, any_hit=True)
+
+
+# trace_transmission tests every cutout triangle against a block of lanes at
+# once; its [Tc, lanes] temporaries hold at most this many elements (each
+# a 4-byte word: 256 MB)
+TRANSMISSION_BLOCK = 1 << 26
+
+
+def trace_transmission(bvh: DeviceBVH, origin: Vec3, direction: Vec3, t_max,
+                       active=None) -> torch.Tensor:
+    """Transparency through cutout geometry: prod(1 - alpha) over the cutout
+    triangles each ray crosses within t_max (1 = clear), with alpha the
+    triangle's micro-grid cell alpha where it has a grid. Together with
+    :func:`trace_occluded` this is the reference's any-hit transparency.
+    A dense pass in plain PyTorch (an XLA pass in the JAX package), over the
+    active lanes only, in blocks of at most TRANSMISSION_BLOCK elements."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    out = torch.ones(n, dtype=torch.float32, device=dev)
+    if bvh.cut_tris is None:
+        return out
+    t_max = (_full(n, t_max, dev) if not isinstance(t_max, torch.Tensor)
+             else t_max.expand(n))
+    lanes = (torch.nonzero(active).flatten() if active is not None
+             else torch.arange(n, device=dev))
+    tris = bvh.cut_tris
+    tv = Vec3(tris[:, 0:1], tris[:, 1:2], tris[:, 2:3])
+    te1 = Vec3(tris[:, 3:4], tris[:, 4:5], tris[:, 5:6])
+    te2 = Vec3(tris[:, 6:7], tris[:, 7:8], tris[:, 8:9])
+    words = (tris[:, 12:44].contiguous().view(torch.int32).long()
+             if tris.shape[1] >= 44 else None)
+    step = max(TRANSMISSION_BLOCK // tris.shape[0], 1)
+    for a in range(0, lanes.shape[0], step):
+        ix = lanes[a:a + step]
+        o2 = Vec3(*(c[ix][None, :] for c in origin))
+        d2 = Vec3(*(c[ix][None, :] for c in direction))
+        t, u, v, hit = ray_triangle(o2, d2, tv, te1, te2, t_min=1e-4)
+        within = hit & (t <= t_max[ix][None, :])
+        if words is not None:
+            # the local mean alpha of the 8x8 barycentric cell crossed
+            s_i = torch.clamp((u * 8.0).to(torch.int32), 0, 7)
+            t_i = torch.clamp((v * 8.0).to(torch.int32), 0, 7)
+            cell = (t_i * 8 + s_i).long()
+            w = words.gather(1, cell >> 1)
+            alpha = ((w >> ((cell & 1) * 16)) & 0xFFFF).to(torch.float32) / 65535.0
+        else:
+            alpha = tris[:, 9:10]
+        out[ix] = torch.prod(torch.where(within, 1.0 - alpha, 1.0), dim=0)
+    return out

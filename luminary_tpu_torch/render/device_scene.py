@@ -1,16 +1,22 @@
-"""Scene → device pack (port of ``luminary_tpu/render/device_scene.py``,
-main-path parts).
+"""Scene → device pack (port of ``luminary_tpu/render/device_scene.py``).
 
-Geometry, materials, lights and shade tables are packed in host numpy (the
-same code as the reference, so every word compares) and uploaded once; the
-sky's atmosphere LUTs and bakes run in PyTorch on the target device. The
-shade table is stored one slot per row, ``[P, SHP_COLS]`` i32 (64 bytes):
-the reference's 8-slots-per-row interleave existed only for the TPU's
+Geometry, materials, lights, textures and shade tables are packed in host
+numpy (the same code as the reference, so every word compares) and uploaded
+once; the sky's atmosphere LUTs and bakes run in PyTorch on the target
+device. The shade tables are stored one slot per row, ``[P, 16]`` i32 (64
+bytes): the hot table ``shade_hot`` (SHP_* columns, read at every hit) and
+the aux table ``shade_aux`` (SHA_* columns: UVs, texture ids, the mip LOD
+base and the normal-map tangent edges, read when textures are on). The
+reference's 8-slots-per-row interleave existed only for the TPU's
 gather-size knee. Quantized words are bit-identical per slot.
 
+The aux table keeps the reference's f16 tangent edges (``SHA_E1XY`` ..
+``SHA_E2YZ``) for parity: an edge component above 65504 world units packs
+as inf, and a normal map on that triangle then gives a NaN shading normal,
+as in the reference.
+
 Features this slice does not port are refused with NotImplementedError, never
-stubbed: cutout (alpha < 1) materials, textures, HDRI skies, the ocean and
-particles.
+stubbed: HDRI skies, the ocean and particles.
 """
 
 from __future__ import annotations
@@ -25,9 +31,16 @@ from ..bvh.native import build_wide_native
 from ..device import resolve_device
 from ..ops.ggx import ggx_energy_quad
 from ..ops.lights import DeviceLights, build_alias_table, lights_to_device, pack_lights_np
+from ..ops.textures import (
+    PAGE_RES,
+    DeviceTextures,
+    pack_textures,
+    page_resolutions,
+)
 from ..ops.traverse import DeviceBVH, pack_device_bvh
 from ..ops.vec import Vec3
-from ..scene.entities import Material, MaterialBaseSubstrate
+from ..ops.volume import DeviceFog, pack_fog
+from ..scene.entities import TEXTURE_NONE, Material, MaterialBaseSubstrate
 from ..scene.scene import Scene
 from ..utils.errors import InvalidAPIArgumentError
 from ..utils.log import info_message
@@ -54,6 +67,19 @@ SHP_PRIM = 13         # i32 source primitive id
 SHP_COLS = 16
 SHP_SUB_REFERENCE = 8  # slots per row in the JAX package's packed table
 
+# Aux shade-row logical columns (read only when textures are on).
+SHA_UV0 = 0           # u0|v0 f16
+SHA_UV1 = 1           # u1|v1
+SHA_UV2 = 2           # u2|v2
+SHA_TEX_AR = 3        # albedo_tex i16 | rough_tex i16 (-1 = none)
+SHA_TEX_MN = 4        # metallic_tex i16 | normal_tex i16
+SHA_TEX_L_ABBE = 5    # luminance_tex i16 | abbe f16
+SHA_LOD = 6           # f32 log2(res_tex * sqrt(uv_area / world_area))
+SHA_E1XY = 7          # e1.x|e1.y f16 (normal-map tangent frame)
+SHA_E1Z2X = 8         # e1.z|e2.x f16
+SHA_E2YZ = 9          # e2.y|e2.z f16
+SHA_COLS = 16
+
 # Fused light rows (light_slot_rows), dense light-index order.
 LSR_V0 = 0
 LSR_E1 = 3
@@ -67,6 +93,9 @@ LSR_COLS = 18
 LSR_ALIAS_PROB = 18
 LSR_ALIAS_ROW = 19
 LSR_FUSED_COLS = 37
+LSR_MICRO_OWN = 37       # cols 37:53 — micro cell weights of the light
+LSR_MICRO_ALIAS = 53     # cols 53:69 — those of its alias partner
+LSR_FUSED_MICRO_COLS = 69
 
 
 class DeviceMaterials(NamedTuple):
@@ -80,7 +109,13 @@ class DeviceMaterials(NamedTuple):
     roughness: torch.Tensor
     metallic: torch.Tensor
     ior: torch.Tensor
+    abbe: torch.Tensor  # f32 [M] dispersion Abbe number (0 = none)
     flags: torch.Tensor  # i32 [M]: bit0 emissive, bit1 translucent, bit2 thin
+    albedo_tex: torch.Tensor  # i32 [M] texture ids (-1 = none)
+    luminance_tex: torch.Tensor
+    roughness_tex: torch.Tensor
+    metallic_tex: torch.Tensor
+    normal_tex: torch.Tensor
 
 
 @dataclass
@@ -112,6 +147,8 @@ class DeviceSceneGeo(NamedTuple):
     n0: Vec3
     n1: Vec3
     n2: Vec3
+    uv_u: Vec3  # [P] texture u at corners (0, 1, 2) in .x/.y/.z
+    uv_v: Vec3  # [P] texture v at corners (0, 1, 2)
     material_id: torch.Tensor  # i32 [P]
     instance_id: torch.Tensor  # i32 [P]
     prim_id: torch.Tensor  # i32 [P]
@@ -123,8 +160,12 @@ class DeviceScene(NamedTuple):
     materials: DeviceMaterials
     sky: DeviceSky
     lights: DeviceLights
+    fog: DeviceFog
+    textures: DeviceTextures
     shade_hot: torch.Tensor  # i32 [P, SHP_COLS]
-    light_slot_rows: torch.Tensor  # f32 [L, 37]
+    shade_aux: torch.Tensor  # i32 [P, SHA_COLS]
+    shade_micro: torch.Tensor  # f32 [P, 16] micro cell weights ([1, 16] without)
+    light_slot_rows: torch.Tensor  # f32 [L, 37] ([L, 69] with micro weights)
     ggx_quad: torch.Tensor  # f32 [32*32, 4] energy-LUT quads
 
 
@@ -136,6 +177,11 @@ def unpack_f16_pair(bits_i32: torch.Tensor):
     hi = ((bits_i32 >> 16) & 0xFFFF).to(torch.int16)
     return (lo.view(torch.float16).to(torch.float32),
             hi.view(torch.float16).to(torch.float32))
+
+
+def unpack_i16_pair(bits_i32: torch.Tensor):
+    """i32 of two i16 halves → (lo, hi) sign-extended i32."""
+    return (bits_i32 << 16) >> 16, bits_i32 >> 16
 
 
 def unpack_oct_snorm16(bits_i32: torch.Tensor):
@@ -157,6 +203,12 @@ def unpack_oct_snorm16(bits_i32: torch.Tensor):
 def _f16_pair_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     l16 = lo.astype(np.float16).view(np.uint16).astype(np.uint32)
     h16 = hi.astype(np.float16).view(np.uint16).astype(np.uint32)
+    return (l16 | (h16 << 16)).view(np.int32)
+
+
+def _i16_pair_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    l16 = lo.astype(np.int16).view(np.uint16).astype(np.uint32)
+    h16 = hi.astype(np.int16).view(np.uint16).astype(np.uint32)
     return (l16 | (h16 << 16)).view(np.int32)
 
 
@@ -193,8 +245,9 @@ def _euler_to_matrix(rotation) -> np.ndarray:
 
 def flatten_instances(scene: Scene):
     """World-space triangle soup over all active instances (numpy) →
-    (corners [T,3,3], normals [T,3,3], mat [T], inst [T], prim [T])."""
-    corners_l, normals_l, mats_l, insts_l, prims_l = [], [], [], [], []
+    (corners [T,3,3], normals [T,3,3], uvs [T,3,2], mat [T], inst [T],
+    prim [T])."""
+    corners_l, normals_l, uvs_l, mats_l, insts_l, prims_l = [], [], [], [], [], []
     for inst in scene.instances:
         if not inst.active or inst.mesh_id >= len(scene.meshes):
             continue
@@ -211,16 +264,17 @@ def flatten_instances(scene: Scene):
         n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
         corners_l.append(c.astype(np.float32))
         normals_l.append(n.astype(np.float32))
+        uvs_l.append(mesh.uvs)
         mats_l.append(mesh.material_ids.astype(np.int32))
         insts_l.append(np.full(mesh.num_triangles, inst.id, np.int32))
         prims_l.append(np.arange(mesh.num_triangles, dtype=np.int32))
     if not corners_l:
         z = np.zeros((0, 3, 3), np.float32)
         e = np.zeros(0, np.int32)
-        return z, z.copy(), e, e.copy(), e.copy()
+        return z, z.copy(), np.zeros((0, 3, 2), np.float32), e, e.copy(), e.copy()
     return (np.concatenate(corners_l), np.concatenate(normals_l),
-            np.concatenate(mats_l), np.concatenate(insts_l),
-            np.concatenate(prims_l))
+            np.concatenate(uvs_l), np.concatenate(mats_l),
+            np.concatenate(insts_l), np.concatenate(prims_l))
 
 
 class HostGeometry(NamedTuple):
@@ -235,12 +289,68 @@ class HostGeometry(NamedTuple):
     material_id: np.ndarray  # i32 [P]
     instance_id: np.ndarray
     prim_id: np.ndarray
+    uvs: np.ndarray | None = None  # [P, 3, 2] corner texture coordinates
+    slot_alpha: np.ndarray | None = None  # f32 [P] where cutouts exist
+    cut_grid: np.ndarray | None = None  # u16 [P, 64] cutout micro-alpha
+
+
+def _cutout_micro_alpha(scene, mat_list, base_a, mat_slot, slot_uv,
+                        slot_alpha) -> np.ndarray:
+    """[P, 64] u16 micro-alpha grid of the cutout slots: each triangle's
+    barycentric domain split into 8x8 (u, v) cells, each cell the mean
+    albedo-texture alpha of a 2x2 stencil inside it (clamped into the
+    triangle) times the material's base alpha; untextured cutouts hold
+    their base alpha."""
+    p = mat_slot.shape[0]
+    grid = np.zeros((p, 64), np.uint16)
+    cut = np.nonzero(slot_alpha < 1.0)[0]
+    if cut.size == 0:
+        return grid
+    g, k = 8, 2
+    cell_s, cell_t = np.meshgrid(np.arange(g), np.arange(g), indexing="xy")
+    cell_s = cell_s.reshape(-1)  # cell = t * 8 + s
+    cell_t = cell_t.reshape(-1)
+    off = (np.arange(k) + 0.5) / k
+    oi, oj = np.meshgrid(off, off, indexing="ij")
+    su = (cell_s[:, None] + oi.reshape(-1)[None, :]) / g  # [64, k*k]
+    sv = (cell_t[:, None] + oj.reshape(-1)[None, :]) / g
+    sv = np.minimum(sv, np.maximum(1.0 - su - 1e-4, 0.0))
+    sw = 1.0 - su - sv
+
+    mat_of = np.clip(mat_slot[cut], 0, len(mat_list) - 1)
+    base = base_a[mat_of]
+    tex_of = np.asarray([
+        int(mat_list[m].albedo_tex) if mat_list[m].albedo_tex != TEXTURE_NONE
+        else -1 for m in mat_of])
+    grid[cut] = np.clip(np.rint(base[:, None] * 65535.0), 0.0, 65535.0).astype(
+        np.uint16)
+    for tid in np.unique(tex_of):
+        if tid < 0 or tid >= len(scene.textures):
+            continue
+        img = scene.textures[int(tid)].as_float()
+        if img.ndim != 3 or img.shape[-1] != 4:
+            continue
+        rows = np.nonzero(tex_of == tid)[0]
+        sids = cut[rows]
+        uv = slot_uv[sids]  # [R, 3, 2]
+        tu = (uv[:, None, None, 0, 0] * sw[None] + uv[:, None, None, 1, 0] * su[None]
+              + uv[:, None, None, 2, 0] * sv[None])
+        tv = (uv[:, None, None, 0, 1] * sw[None] + uv[:, None, None, 1, 1] * su[None]
+              + uv[:, None, None, 2, 1] * sv[None])
+        h, w = img.shape[0], img.shape[1]
+        xi = np.clip(((tu % 1.0) * w).astype(np.int64), 0, w - 1)
+        yi = np.clip(((tv % 1.0) * h).astype(np.int64), 0, h - 1)
+        cellmean = img[yi, xi, 3].mean(axis=2) * base[rows][:, None]
+        grid[sids] = np.clip(np.rint(cellmean * 65535.0), 0.0, 65535.0).astype(
+            np.uint16)
+    return grid
 
 
 def pack_geometry_np(scene: Scene) -> HostGeometry:
     """Flatten, build the 16-wide BVH (native C++ builder) and lay every
-    per-triangle attribute out in leaf-slot order."""
-    corners, normals, mats, insts, prims = flatten_instances(scene)
+    per-triangle attribute out in leaf-slot order; slots of materials whose
+    alpha (base alpha x mean albedo-texture alpha) is below 1 are cutouts."""
+    corners, normals, uvs, mats, insts, prims = flatten_instances(scene)
     t = corners.shape[0]
     wide = build_wide_native(corners)
     info_message("BVH16 built: %d tris, %d wide nodes, %d leaf blocks, depth %d",
@@ -266,20 +376,35 @@ def pack_geometry_np(scene: Scene) -> HostGeometry:
     fn = np.cross(e1, e2)
     fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
     slot_n = slotify(normals) if t else np.zeros((p, 3, 3), np.float32)
+    slot_uv = slotify(uvs) if t else np.zeros((p, 3, 2), np.float32)
+
+    slot_alpha = cut_grid = None
+    mat_list = scene.materials
+    if mat_list:
+        base_a = np.asarray([m.albedo[3] for m in mat_list], np.float32)
+        tex_a = np.ones(len(mat_list), np.float32)
+        for i, m in enumerate(mat_list):
+            tid = m.albedo_tex
+            if tid != TEXTURE_NONE and 0 <= int(tid) < len(scene.textures):
+                img = scene.textures[int(tid)].as_float()
+                if img.ndim == 3 and img.shape[-1] == 4:
+                    tex_a[i] = float(img[..., 3].mean())
+        alpha_per_mat = np.clip(base_a * tex_a, 0.0, 1.0)
+        if (alpha_per_mat < 1.0).any():
+            mat_slot = np.where(valid, mats[safe] if t else 0, 0).astype(np.int64)
+            slot_alpha = alpha_per_mat[
+                np.clip(mat_slot, 0, len(mat_list) - 1)].astype(np.float32)
+            slot_alpha[~valid] = 1.0
+            cut_grid = _cutout_micro_alpha(scene, mat_list, base_a, mat_slot,
+                                           slot_uv, slot_alpha)
     return HostGeometry(
         wide=wide, v0=v0, e1=e1, e2=e2, normals=slot_n,
         face_normal=fn.astype(np.float32),
         material_id=np.where(valid, mats[safe] if t else 0, 0).astype(np.int32),
         instance_id=np.where(valid, insts[safe] if t else 0, -1).astype(np.int32),
         prim_id=np.where(valid, prims[safe] if t else 0, -1).astype(np.int32),
+        uvs=slot_uv, slot_alpha=slot_alpha, cut_grid=cut_grid,
     )
-
-
-def _refuse_cutouts(scene: Scene) -> None:
-    for m in scene.materials:
-        if float(m.albedo[3]) < 1.0:
-            raise NotImplementedError(
-                "cutout (alpha < 1) materials are not ported yet")
 
 
 def _t(a, device, dtype=None):
@@ -295,10 +420,14 @@ def _v3(a, device) -> Vec3:
 
 def upload_geometry(hg: HostGeometry, device) -> DeviceSceneGeo:
     return DeviceSceneGeo(
-        bvh=pack_device_bvh(hg.wide, hg.v0, hg.e1, hg.e2, device),
+        bvh=pack_device_bvh(hg.wide, hg.v0, hg.e1, hg.e2, device,
+                            slot_alpha=hg.slot_alpha,
+                            slot_cut_grid=hg.cut_grid),
         n0=_v3(hg.normals[:, 0], device),
         n1=_v3(hg.normals[:, 1], device),
         n2=_v3(hg.normals[:, 2], device),
+        uv_u=_v3(hg.uvs[:, :, 0], device),
+        uv_v=_v3(hg.uvs[:, :, 1], device),
         material_id=_t(hg.material_id, device),
         instance_id=_t(hg.instance_id, device),
         prim_id=_t(hg.prim_id, device),
@@ -322,6 +451,11 @@ def materials_np(scene: Scene) -> dict:
     albedo = np.asarray([mat.albedo for mat in mats], np.float32)
     emission = np.asarray(
         [np.asarray(mat.emission) * mat.emission_scale for mat in mats], np.float32)
+
+    def tex(name):
+        return np.asarray([-1 if getattr(m, name) == TEXTURE_NONE
+                           else int(getattr(m, name)) for m in mats], np.int32)
+
     return dict(
         albedo_r=albedo[:, 0].copy(), albedo_g=albedo[:, 1].copy(),
         albedo_b=albedo[:, 2].copy(), albedo_a=albedo[:, 3].copy(),
@@ -330,28 +464,99 @@ def materials_np(scene: Scene) -> dict:
         roughness=np.asarray([mat.roughness for mat in mats], np.float32),
         metallic=np.asarray([1.0 if mat.metallic else 0.0 for mat in mats], np.float32),
         ior=np.asarray([mat.refraction_index for mat in mats], np.float32),
+        abbe=np.asarray([mat.abbe for mat in mats], np.float32),
         flags=flags,
+        albedo_tex=tex("albedo_tex"), luminance_tex=tex("luminance_tex"),
+        roughness_tex=tex("roughness_tex"), metallic_tex=tex("metallic_tex"),
+        normal_tex=tex("normal_tex"),
     )
 
 
-def pack_lights_for(hg: HostGeometry, mats: dict) -> dict:
-    """Emissive-triangle light set over the packed geometry (numpy fields)."""
+def _emission_tex_means(scene: Scene, hg: HostGeometry, mats: dict):
+    """Per-slot emission-texture importance of emitters with a luminance
+    map: 256 stratified points of the sqrt-warp domain per triangle, a
+    nearest-texel repeat-wrap fetch of the linear source → (mean [P], the
+    triangle's selection multiplier; cells [P, 16], the mean of each 4x4
+    cell of the warp domain, floored at 2 % of the row's largest), or
+    (None, None) when no emitter has a luminance map."""
+    lum_tex = mats["luminance_tex"]
+    emissive = (mats["flags"] & MAT_FLAG_EMISSIVE) != 0
+    if not np.any(emissive & (lum_tex >= 0)):
+        return None, None
+    mat_ids = hg.material_id.astype(np.int64)
+    tids = np.where(emissive[mat_ids], lum_tex[mat_ids], -1)
+    valid = hg.prim_id >= 0
+    mult = np.ones(mat_ids.shape[0], np.float32)
+    cells = np.ones((mat_ids.shape[0], 16), np.float32)
+
+    # 16x16 stratified (r1, r2) grid; cell (i, j) = points [4i:4i+4, 4j:4j+4],
+    # the cells the sampler warps a uniform draw into
+    g = (np.arange(16, dtype=np.float64) + 0.5) / 16.0
+    r1, r2 = np.meshgrid(g, g, indexing="ij")
+    su = np.sqrt(r1.ravel())
+    b1 = (1.0 - su).astype(np.float32)
+    b2 = (r2.ravel() * su).astype(np.float32)
+    b0 = 1.0 - b1 - b2
+    uu = hg.uvs[:, :, 0]
+    vv = hg.uvs[:, :, 1]
+
+    page_of = {}
+    for i, tex in enumerate(scene.textures):
+        if tex.as_float().ndim != 4:  # 3D textures are not atlas paged
+            page_of[i] = len(page_of)
+    for tid in np.unique(tids[valid & (tids >= 0)]):
+        if int(tid) not in page_of:
+            continue
+        f = scene.textures[int(tid)].as_float()
+        if f.shape[-1] == 1:
+            lum = f[..., 0]
+        else:
+            lum = 0.2126 * f[..., 0] + 0.7152 * f[..., 1] + 0.0722 * f[..., 2]
+        h, w = lum.shape[:2]
+        sel = np.nonzero(valid & (tids == tid))[0]
+        u = (uu[sel, 0:1] * b0[None] + uu[sel, 1:2] * b1[None]
+             + uu[sel, 2:3] * b2[None])
+        v = (vv[sel, 0:1] * b0[None] + vv[sel, 1:2] * b1[None]
+             + vv[sel, 2:3] * b2[None])
+        xi = np.clip(((u - np.floor(u)) * w).astype(np.int64), 0, w - 1)
+        yi = np.clip(((v - np.floor(v)) * h).astype(np.int64), 0, h - 1)
+        vals = lum[yi, xi].astype(np.float32)  # [S, 256]
+        # floor: an emitter with any nonzero texel stays selectable
+        mult[sel] = np.maximum(vals.mean(axis=1), 1e-3)
+        c = vals.reshape(-1, 4, 4, 4, 4).mean(axis=(2, 4)).reshape(-1, 16)
+        # a cell the 16-point estimate missed must stay reachable
+        floor = 0.02 * c.max(axis=1, keepdims=True) + 1e-6
+        cells[sel] = np.maximum(c, floor)
+    return mult, cells
+
+
+def pack_lights_for(hg: HostGeometry, mats: dict, scene: Scene | None = None) -> dict:
+    """Emissive-triangle light set over the packed geometry (numpy fields).
+    With ``scene``, emitters with a luminance map weight their selection by
+    the map's triangle mean and carry its micro-cell weights."""
     emission = np.stack([mats["emission_r"], mats["emission_g"],
                          mats["emission_b"]], axis=-1)
+    tex_lum_mean, micro_w = (_emission_tex_means(scene, hg, mats)
+                             if scene is not None else (None, None))
     return pack_lights_np(
         tri_v0=hg.v0, tri_e1=hg.e1, tri_e2=hg.e2,
         material_id=hg.material_id, emission=emission,
         emissive_flags=(mats["flags"] & MAT_FLAG_EMISSIVE) != 0,
-        valid_slot=hg.prim_id >= 0)
+        valid_slot=hg.prim_id >= 0, tex_lum_mean=tex_lum_mean,
+        micro_w=micro_w)
 
 
 def pack_light_slot_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
     """Compact fused light rows [L, 37]: cols 0:18 the light's block, col 18
-    its alias acceptance probability, cols 19:37 its alias partner's block."""
+    its alias acceptance probability, cols 19:37 its alias partner's block;
+    with micro weights [L, 69], cols 37:53 the light's and 53:69 its alias
+    partner's."""
     slots = np.asarray(lights["slot"]).astype(np.int64)
     l = max(len(slots), 1)
+    has_micro = bool(lights.get("has_micro", False))
+    ncols = LSR_FUSED_MICRO_COLS if has_micro else LSR_FUSED_COLS
     if int(lights["num_lights"]) == 0:
-        return np.zeros((l, LSR_FUSED_COLS), np.float32)
+        return np.zeros((l, ncols), np.float32)
     base = np.zeros((l, LSR_COLS), np.float32)
     s = slots
     base[:, LSR_V0:LSR_V0 + 3] = hg.v0[s]
@@ -366,10 +571,14 @@ def pack_light_slot_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarr
     base[:, LSR_SELECT_PDF] = lights["select_pdf"]
     base[:, LSR_SLOT] = s.astype(np.int32).view(np.float32)
     alias = np.asarray(lights["alias"]).astype(np.int64)
-    rows = np.zeros((l, LSR_FUSED_COLS), np.float32)
+    rows = np.zeros((l, ncols), np.float32)
     rows[:, :LSR_COLS] = base
     rows[:, LSR_ALIAS_PROB] = lights["prob"]
     rows[:, LSR_ALIAS_ROW:LSR_ALIAS_ROW + LSR_COLS] = base[alias]
+    if has_micro:
+        mr = np.asarray(lights["micro_rows"], np.float32)
+        rows[:, LSR_MICRO_OWN:LSR_MICRO_OWN + 16] = mr
+        rows[:, LSR_MICRO_ALIAS:LSR_MICRO_ALIAS + 16] = mr[alias]
     return rows
 
 
@@ -418,6 +627,60 @@ def pack_shade_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
     out[:, SHP_AREA] = f32(lights["slot_area"])
     out[:, SHP_PRIM] = hg.prim_id.astype(np.int32)
     return out
+
+
+def pack_shade_aux(hg: HostGeometry, mats: dict, tex_res) -> np.ndarray:
+    """Per-slot aux rows [P, SHA_COLS] i32 (one slot per row); every word
+    equals the reference's packed word for that slot. ``tex_res``: the
+    textures' level-0 page resolutions, for the mip LOD base."""
+    p = hg.material_id.shape[0]
+    mat = hg.material_id.astype(np.int64)
+    at = mats["albedo_tex"][mat]
+    if tex_res is not None and len(tex_res):
+        res_slot = np.where(at >= 0, np.asarray(tex_res)[np.maximum(at, 0)],
+                            PAGE_RES).astype(np.float64)
+    else:
+        res_slot = np.float64(PAGE_RES)
+    e1, e2 = hg.e1, hg.e2
+    world_area2 = np.maximum(np.linalg.norm(np.cross(e1, e2), axis=-1), 1e-20)
+    uu, vv = hg.uvs[:, :, 0], hg.uvs[:, :, 1]
+    du1, dv1 = uu[:, 1] - uu[:, 0], vv[:, 1] - vv[:, 0]
+    du2, dv2 = uu[:, 2] - uu[:, 0], vv[:, 2] - vv[:, 0]
+    uv_area2 = np.abs(du1 * dv2 - du2 * dv1)
+    lod_base = np.where(
+        uv_area2 > 1e-20,
+        np.log2(res_slot * np.sqrt(uv_area2 / world_area2) + 1e-20),
+        0.0).astype(np.float32)
+    out = np.zeros((p, SHA_COLS), np.int32)
+    out[:, SHA_UV0] = _f16_pair_np(uu[:, 0], vv[:, 0])
+    out[:, SHA_UV1] = _f16_pair_np(uu[:, 1], vv[:, 1])
+    out[:, SHA_UV2] = _f16_pair_np(uu[:, 2], vv[:, 2])
+    out[:, SHA_TEX_AR] = _i16_pair_np(at, mats["roughness_tex"][mat])
+    out[:, SHA_TEX_MN] = _i16_pair_np(mats["metallic_tex"][mat],
+                                      mats["normal_tex"][mat])
+    out[:, SHA_TEX_L_ABBE] = (
+        (mats["luminance_tex"][mat].astype(np.int16).view(np.uint16)
+         .astype(np.uint32))
+        | (mats["abbe"][mat].astype(np.float16).view(np.uint16).astype(np.uint32)
+           << 16)).view(np.int32)
+    out[:, SHA_LOD] = lod_base.view(np.int32)
+    out[:, SHA_E1XY] = _f16_pair_np(e1[:, 0], e1[:, 1])
+    out[:, SHA_E1Z2X] = _f16_pair_np(e1[:, 2], e2[:, 0])
+    out[:, SHA_E2YZ] = _f16_pair_np(e2[:, 1], e2[:, 2])
+    return out
+
+
+def pack_shade_micro(hg: HostGeometry, lights: dict) -> np.ndarray:
+    """Slot-space micro cell weights [P, 16] f32, normalised so that a hit
+    multiplies its NEE pdf by them directly (16 w / sum w); [1, 16] of
+    zeros without micro weights."""
+    if not lights.get("has_micro", False):
+        return np.zeros((1, 16), np.float32)
+    mr = np.asarray(lights["micro_rows"])
+    micro = np.ones((hg.material_id.shape[0], 16), np.float32)
+    micro[np.asarray(lights["slot"])] = (
+        16.0 * mr / np.maximum(mr.sum(axis=1, keepdims=True), 1e-20))
+    return micro
 
 
 def sun_direction(azimuth: float, altitude: float) -> np.ndarray:
@@ -541,14 +804,11 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
 
 
 def check_scene_supported(scene: Scene) -> None:
-    """Raise NotImplementedError for scene features this slice lacks."""
-    if len(scene.textures):
-        raise NotImplementedError("textures are not ported yet")
+    """Raise NotImplementedError for scene features the port lacks."""
     if scene.ocean.active or scene.particles.active:
         raise NotImplementedError("the ocean and particles are not ported yet")
     if int(scene.sky.mode) not in (0, 2):
         raise NotImplementedError("only DEFAULT and CONSTANT_COLOR skies are ported")
-    _refuse_cutouts(scene)
 
 
 def pack_scene(scene: Scene, device=None) -> DeviceScene:
@@ -558,13 +818,18 @@ def pack_scene(scene: Scene, device=None) -> DeviceScene:
     check_scene_supported(scene)
     hg = pack_geometry_np(scene)
     mats = materials_np(scene)
-    lights = pack_lights_for(hg, mats)
+    lights = pack_lights_for(hg, mats, scene=scene)
     return DeviceScene(
         geo=upload_geometry(hg, device),
         materials=DeviceMaterials(**{k: _t(v, device) for k, v in mats.items()}),
         sky=pack_sky(scene, device),
         lights=lights_to_device(lights, device),
+        fog=pack_fog(scene.fog),
+        textures=pack_textures(scene.textures, device),
         shade_hot=_t(pack_shade_rows(hg, mats, lights), device),
+        shade_aux=_t(pack_shade_aux(hg, mats, page_resolutions(scene.textures)),
+                     device),
+        shade_micro=_t(pack_shade_micro(hg, lights), device),
         light_slot_rows=_t(pack_light_slot_rows(hg, mats, lights), device),
         ggx_quad=_t(ggx_energy_quad(), device),
     )
@@ -584,7 +849,7 @@ def from_jax_arrays(tree: dict, device):
     """The JAX package's DeviceScene and DeviceCamera, flattened to nested
     dicts of numpy arrays and numbers (``tree["scene"]``, ``tree["camera"]``,
     field names as in the reference), → the port's (DeviceScene,
-    DeviceCamera). The interleaved shade table becomes one slot per row;
+    DeviceCamera). The interleaved shade tables become one slot per row;
     depth and num_nodes are kept."""
     from ..ops.camera import DeviceCamera
 
@@ -595,27 +860,33 @@ def from_jax_arrays(tree: dict, device):
     def v3(x):
         return Vec3(*(_t(np.asarray(c, np.float32), device) for c in x))
 
+    def opt(x, dtype):
+        return None if x is None else _t(np.asarray(x, dtype), device)
+
     bvh = DeviceBVH(
         rows=_t(np.asarray(b["rows"], np.float32), device),
         tri_v0=v3(b["tri_v0"]), tri_e1=v3(b["tri_e1"]), tri_e2=v3(b["tri_e2"]),
-        dense_tris=(None if b["dense_tris"] is None
-                    else _t(np.asarray(b["dense_tris"], np.float32), device)),
-        dense_slot=(None if b["dense_slot"] is None
-                    else _t(np.asarray(b["dense_slot"], np.int32), device)),
+        dense_tris=opt(b["dense_tris"], np.float32),
+        dense_slot=opt(b["dense_slot"], np.int32),
         bounds=_t(np.asarray(b["bounds"], np.float32), device),
         depth=int(b["depth"]), num_nodes=int(b["num_nodes"]),
+        rows_shadow=opt(b["rows_shadow"], np.float32),
+        cut_tris=opt(b["cut_tris"], np.float32),
     )
     p = int(np.asarray(g["material_id"]).shape[0])
     geo = DeviceSceneGeo(
         bvh=bvh, n0=v3(g["n0"]), n1=v3(g["n1"]), n2=v3(g["n2"]),
+        uv_u=v3(g["uv_u"]), uv_v=v3(g["uv_v"]),
         material_id=_t(np.asarray(g["material_id"], np.int32), device),
         instance_id=_t(np.asarray(g["instance_id"], np.int32), device),
         prim_id=_t(np.asarray(g["prim_id"], np.int32), device),
         face_normal=v3(g["face_normal"]),
     )
     m = s["materials"]
+    int_fields = ("flags", "albedo_tex", "luminance_tex", "roughness_tex",
+                  "metallic_tex", "normal_tex")
     mats = DeviceMaterials(**{
-        k: _t(np.asarray(m[k]).astype(np.int32 if k == "flags" else np.float32),
+        k: _t(np.asarray(m[k]).astype(np.int32 if k in int_fields else np.float32),
               device)
         for k in DeviceMaterials._fields})
     k = s["sky"]
@@ -649,11 +920,27 @@ def from_jax_arrays(tree: dict, device):
         tree_rows=np.asarray(li["tree_rows"], np.float32),
         tree_num_nodes=int(li["tree_num_nodes"]),
         tree_levels=int(li["tree_levels"]),
+        micro_rows=np.asarray(li["micro_rows"], np.float32),
+        has_micro=bool(li["has_micro"]),
     ), device)
+    fo = s["fog"]
+    fog = DeviceFog(active=bool(fo["active"]), sigma_t=float(fo["sigma_t"]),
+                    scatter_albedo=float(fo["scatter_albedo"]),
+                    height=float(fo["height"]), max_dist=float(fo["max_dist"]),
+                    g=float(fo["g"]))
+    tx = s["textures"]
+    textures = DeviceTextures(rows=f32(tx["rows"]),
+                              page_table=_t(np.asarray(tx["page_table"], np.int32),
+                                            device),
+                              num_pages=int(tx["num_pages"]))
     scene = DeviceScene(
-        geo=geo, materials=mats, sky=sky, lights=lights,
+        geo=geo, materials=mats, sky=sky, lights=lights, fog=fog,
+        textures=textures,
         shade_hot=_t(unpack_reference_shade_rows(
             np.asarray(s["shade_hot"]), p), device),
+        shade_aux=_t(unpack_reference_shade_rows(
+            np.asarray(s["shade_aux"]), p), device),
+        shade_micro=f32(s["shade_micro"]),
         light_slot_rows=f32(s["light_slot_rows"]),
         ggx_quad=_t(ggx_energy_quad(), device),
     )

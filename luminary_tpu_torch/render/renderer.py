@@ -147,13 +147,7 @@ def unported_features(scene: Scene) -> list[str]:
         if scene.cloud.active else ())
     ocean = scene.ocean
     flags = {
-        "use_textures": len(scene.textures) > 0,
-        "use_aux_textures": any(
-            m.roughness_tex != TEXTURE_NONE or m.metallic_tex != TEXTURE_NONE
-            or m.normal_tex != TEXTURE_NONE or m.luminance_tex != TEXTURE_NONE
-            for m in scene.materials),
         "use_clouds": bool(cloud_layers and mode != 1),
-        "use_bridges": bool(scene.fog.active),
         "use_physical_camera": bool(scene.camera.use_physical_camera),
         "env_nee": bool(getattr(s, "ambient_nee", True) and mode == 1),
         "spectral": bool(getattr(s, "spectral_rendering", False)),
@@ -229,6 +223,13 @@ class Renderer:
             height=rh_full,
             max_depth=max(int(s.max_ray_depth), 1),
             ris_candidates=k_eff,
+            use_textures=len(self.scene.textures) > 0,
+            use_aux_textures=any(
+                m.roughness_tex != TEXTURE_NONE or m.metallic_tex != TEXTURE_NONE
+                or m.normal_tex != TEXTURE_NONE or m.luminance_tex != TEXTURE_NONE
+                for m in self.scene.materials),
+            use_bridges=bool(self.scene.fog.active),
+            bridge_vertices=min(max(int(s.bridge_max_num_vertices), 1), 4),
             blue_noise=bool(getattr(s, "blue_noise", True)),
             aerial=bool(getattr(s, "aerial_perspective", True) and mode == 0),
             sun_ris=bool(getattr(s, "sun_ris", True) and mode != 2),

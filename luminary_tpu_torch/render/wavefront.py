@@ -1,20 +1,28 @@
 """The wavefront path-tracing integrator (port of
-``luminary_tpu/render/wavefront.py``, main-path branches).
+``luminary_tpu/render/wavefront.py``).
 
 One lane per pixel, flat ``[N]`` SoA state. Each depth traces the wavefront
-(kernel B), fetches one shade row per hit (kernel A; per-field gathers for
-tables up to SMALL_TABLE_SLOTS), shades GGX/Lambert/dielectric lobes, runs
-sun NEE with sun RIS and triangle-light NEE with RIS (candidate 0 from the
-light tree, kernel C, in many-light scenes), traces every shadow ray in one
-batched any-hit walk, adds aerial perspective on hit segments and evaluates
-the sky once after the loop for the recorded misses.
+(kernel B), samples fog collisions, fetches one shade row per hit (kernel A;
+per-field gathers for tables up to SMALL_TABLE_SLOTS) and, with textures,
+one aux row (UVs, texture ids, the LOD base, the tangent edges), applies
+the albedo, roughness, metallic, luminance and normal maps, shades
+GGX/Lambert/dielectric lobes or the fog's HG phase, runs sun NEE with sun
+RIS and triangle-light NEE with RIS (candidate 0 from the light tree, kernel
+C, in many-light scenes; micro-cell emission importance for emitters with a
+luminance map), traces every shadow ray in one batched any-hit walk over
+the opaque geometry with the transparency of cutout triangles and the fog's
+transmittance on top, connects fog vertices to the chosen light through
+bridges of 1..bridge_vertices scattering events, adds aerial perspective on
+segments that end on geometry or in fog and evaluates the sky once after the
+loop for the recorded misses.
 
-Branches of the reference that this slice does not port (fog and bridges,
-water, clouds, textures, spectral, the physical camera, env NEE, particles,
-the analytic ocean, wavefront sorting, debug shading) are refused by the
-Renderer rather than stubbed. With no fog and no water their terms in the
-reference are exact identities (transmittance 1, no collisions), so leaving
-them out changes no value.
+The branches run in the reference's order, so that every random stream is
+drawn at the same point. Branches of the reference that the port does not
+have (water, clouds, spectral, the physical camera, env NEE, particles, the
+analytic ocean, wavefront sorting, debug shading) are refused by the
+Renderer rather than stubbed. Without fog, cutouts or textures the
+reference's terms for them are exact identities (no collisions,
+transmittance 1), so the port skips them and changes no value.
 """
 
 from __future__ import annotations
@@ -38,8 +46,9 @@ from ..ops.material import (
     medium_push,
     medium_top_ior,
 )
+from ..ops.bridges import sample_bridge
 from ..ops.random import RandomTarget, blue_base, random_1d
-from ..ops.rowops import gather_packed_planar
+from ..ops.rowops import gather_packed_planar, gather_planar
 from ..ops.sky import (
     SUN_COS_RADIUS,
     SUN_SOLID_ANGLE,
@@ -48,13 +57,31 @@ from ..ops.sky import (
     sun_dir_vec,
     sun_solid_angle_radiance,
 )
-from ..ops.traverse import trace_closest, trace_occluded
+from ..ops.textures import sample_atlas
+from ..ops.traverse import trace_closest, trace_occluded, trace_transmission
 from ..ops.vec import Vec3, dot, gather as vgather, normalize, vwhere
+from ..ops.volume import (
+    fog_transmittance,
+    hg_phase,
+    sample_fog_collision,
+    sample_hg_direction,
+)
 from ..ops.wavefront_utils import sample_sun_direction
 from .device_scene import (
     MAT_FLAG_EMISSIVE,
     MAT_FLAG_THIN_WALLED,
     MAT_FLAG_TRANSLUCENT,
+    SHA_COLS,
+    SHA_E1XY,
+    SHA_E1Z2X,
+    SHA_E2YZ,
+    SHA_LOD,
+    SHA_TEX_AR,
+    SHA_TEX_L_ABBE,
+    SHA_TEX_MN,
+    SHA_UV0,
+    SHA_UV1,
+    SHA_UV2,
     SHP_ALB_BA,
     SHP_ALB_RG,
     SHP_AREA,
@@ -71,6 +98,7 @@ from .device_scene import (
     SHP_SEL_PDF,
     DeviceScene,
     unpack_f16_pair,
+    unpack_i16_pair,
     unpack_oct_snorm16,
 )
 
@@ -84,6 +112,12 @@ class RenderConfig(NamedTuple):
     height: int
     max_depth: int
     ris_candidates: int = 4
+    use_textures: bool = False  # albedo maps (and the aux row)
+    use_aux_textures: bool = False  # roughness/metallic/normal/luminance maps
+    # bridge volume NEE, on with fog: fog vertices connect to the chosen
+    # light through 1..bridge_vertices scattering events
+    use_bridges: bool = False
+    bridge_vertices: int = 1
     blue_noise: bool = True
     aerial: bool = False
     sun_ris: bool = False
@@ -164,12 +198,43 @@ def _lum(r, g, b):
     return 0.2126 * r + 0.7152 * g + 0.0722 * b
 
 
+def _normal_mapped(ns: Vec3, u0: Vec3, v0: Vec3, e1v: Vec3, e2v: Vec3,
+                   nx_, ny_, nz_, normal_tex):
+    """The shading normal perturbed by a tangent-space normal map (texel
+    n = (nx, ny, nz) in [0, 1]); lanes without a map, or whose UV frame is
+    degenerate, keep ``ns``."""
+    du1 = u0.y - u0.x
+    dv1 = v0.y - v0.x
+    du2 = u0.z - u0.x
+    dv2 = v0.z - v0.x
+    det = du1 * dv2 - du2 * dv1
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    tang = normalize(Vec3(
+        (e1v.x * dv2 - e2v.x * dv1) * inv_det,
+        (e1v.y * dv2 - e2v.y * dv1) * inv_det,
+        (e1v.z * dv2 - e2v.z * dv1) * inv_det,
+    ))
+    bitan = Vec3(ns.y * tang.z - ns.z * tang.y,
+                 ns.z * tang.x - ns.x * tang.z,
+                 ns.x * tang.y - ns.y * tang.x)
+    tnx = nx_ * 2.0 - 1.0
+    tny = ny_ * 2.0 - 1.0
+    tnz = torch.clamp(nz_ * 2.0 - 1.0, min=0.1)
+    mapped = normalize(Vec3(
+        tang.x * tnx + bitan.x * tny + ns.x * tnz,
+        tang.y * tnx + bitan.y * tny + ns.y * tnz,
+        tang.z * tnx + bitan.z * tny + ns.z * tnz,
+    ))
+    return vwhere((normal_tex >= 0) & ok, mapped, ns)
+
+
 def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                   pixel_x: torch.Tensor, pixel_y: torch.Tensor, sample_id,
                   with_gbuffer: bool = True):
     """Trace one full sample for the pixel wavefront → (radiance [N, 3],
-    gbuffer GBufferMeta, rays_traced 0-d f32: closest rays per depth + sun
-    and light shadow rays, the accounting of ``bench.py``).
+    gbuffer GBufferMeta, rays_traced 0-d f32: closest rays per depth + sun,
+    light and bridge shadow rays, the accounting of ``bench.py``).
 
     ``sample_id`` is one id for every lane (an int or a 0-d tensor) or an
     ``[N]`` tensor of per-lane ids (adaptive stages); ids are u32 words.
@@ -179,6 +244,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     mats = scene.materials
     lights = scene.lights
     sky = scene.sky
+    fog = scene.fog
     dev = pixel_x.device
     n = pixel_x.shape[0]
     pixel_id = (pixel_y.to(torch.int64) * config.width
@@ -219,18 +285,44 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     use_rows = geo.material_id.shape[0] > SMALL_TABLE_SLOTS
     sun_up = sky.sun_dir[1] > -0.1  # 0-d bool
     sky_has_sun = int(sky.mode) != 2
+    # fog: collisions only where an active fog has density; otherwise every
+    # fog term of the reference is an identity and is skipped
+    fog_on = fog.on
+    use_bridges = config.use_bridges and fog_on
+    # once a path scatters in the fog, the bridges of that first vertex own
+    # all geometry-light transport (orders 1..M): later vertices run no
+    # geometry NEE and collect no emission. M = 1 keeps the direct pairing.
+    multi_bridge = use_bridges and config.bridge_vertices >= 2
+    vol_scattered = false
+    cutouts = geo.bvh.has_cutouts
+    use_tex = config.use_textures
+    use_aux = use_tex and config.use_aux_textures
+    if use_tex:  # the ray footprint's angle per pixel, in float32
+        spread = float(np.float32(2.0) * np.float32(float(cam.fov))
+                       / np.float32(config.height))
 
     for depth in range(config.max_depth):
         rays_traced = rays_traced + active.to(torch.float32).sum()
         hit = trace_closest(geo.bvh, origin, direction, active=active)
         hit_valid = hit.valid
-        missed = active & ~hit_valid
-        hit_lane = active & hit_valid
-        seg_len = torch.where(hit_valid, hit.t, 1e7)
 
-        # ---- aerial perspective on segments that end on geometry ----
+        # ---- fog collisions (analog tracking) ----
+        if fog_on:
+            t_media = torch.where(hit_valid, hit.t, 1e7)
+            collided, t_col = sample_fog_collision(
+                fog, origin, direction, t_media, pixel_id, sample_id, depth)
+            vol_lane = active & collided
+            missed = active & ~hit_valid & ~collided
+            hit_lane = active & hit_valid & ~collided
+            seg_len = torch.where(collided, t_col, t_media)
+        else:
+            missed = active & ~hit_valid
+            hit_lane = active & hit_valid
+            seg_len = torch.where(hit_valid, hit.t, 1e7)
+
+        # ---- aerial perspective on segments that end on geometry or fog ----
         if config.aerial:
-            ends_here = active & hit_valid
+            ends_here = active & (hit_valid | collided) if fog_on else hit_lane
             (atr_r, atr_g, atr_b), (ain_r, ain_g, ain_b) = aerial_fetch(
                 sky, direction, seg_len * 1e-3)  # world m → km
             on = ends_here.to(torch.float32)
@@ -251,15 +343,19 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         miss_thr_b = torch.where(missed, thr_b, miss_thr_b)
         miss_sun_weight = torch.where(missed, w_sun, miss_sun_weight)
         ever_missed = ever_missed | missed
-        active = hit_lane
+        active = hit_lane | vol_lane if fog_on else hit_lane
 
         # ---- hit context: one shade-row gather (big tables) or per-field
-        # gathers (small tables) ----
+        # gathers (small tables); with textures one aux row too ----
         slot = torch.where(hit_lane, hit.slot, 0)
         t_safe = torch.where(hit_lane, hit.t, 1.0)
         hit_pos = Vec3(origin.x + direction.x * t_safe,
                        origin.y + direction.y * t_safe,
                        origin.z + direction.z * t_safe)
+        if fog_on:
+            vol_pos = Vec3(origin.x + direction.x * t_col,
+                           origin.y + direction.y * t_col,
+                           origin.z + direction.z * t_col)
         if use_rows:
             srow = gather_packed_planar(scene.shade_hot, slot, SHP_COLS)
             mat_flags = srow[SHP_FLAGS]
@@ -278,6 +374,13 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             )
             nee_sel_pdf = srow[SHP_SEL_PDF].view(torch.float32)
             nee_area = srow[SHP_AREA].view(torch.float32)
+            if use_tex:
+                arow = gather_packed_planar(scene.shade_aux, slot, SHA_COLS)
+                u0_, v0_ = unpack_f16_pair(arow[SHA_UV0])
+                u1_, v1_ = unpack_f16_pair(arow[SHA_UV1])
+                u2_, v2_ = unpack_f16_pair(arow[SHA_UV2])
+                uvs = (Vec3(u0_, u1_, u2_), Vec3(v0_, v1_, v2_))
+                tex_id, rough_tex = unpack_i16_pair(arow[SHA_TEX_AR])
         else:
             sl = slot.long()
             mat_id = geo.material_id[sl].long()
@@ -289,6 +392,63 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             em_b = mats.emission_b[mat_id]
             nee_sel_pdf = lights.slot_select_pdf[sl]
             nee_area = lights.slot_area[sl]
+            if use_tex:
+                uvs = (vgather(geo.uv_u, sl), vgather(geo.uv_v, sl))
+                tex_id = mats.albedo_tex[mat_id]
+        if use_tex:
+            u0, v0 = uvs
+            w_b = 1.0 - hit.u - hit.v
+            uu = u0.x * w_b + u0.y * hit.u + u0.z * hit.v
+            vv = v0.x * w_b + v0.y * hit.u + v0.z * hit.v
+            # ray-footprint mip LOD: texels per pixel ~ texel density x hit
+            # distance x angle per pixel / view cosine
+            cos_view = torch.abs(dot(ng, direction))
+            lod_base = arow[SHA_LOD].view(torch.float32) if use_rows else 0.0
+            lod = lod_base + torch.log2(torch.clamp(t_safe * spread, min=1e-8)
+                                        / torch.clamp(cos_view, min=0.05))
+            tr_, tg_, tb_, ta_ = sample_atlas(scene.textures, tex_id, uu, vv,
+                                              lod=lod)
+            lane_mat = lane_mat._replace(
+                albedo_r=lane_mat.albedo_r * tr_,
+                albedo_g=lane_mat.albedo_g * tg_,
+                albedo_b=lane_mat.albedo_b * tb_,
+                opacity=lane_mat.opacity * ta_,
+            )
+            if use_aux:
+                if use_rows:
+                    metal_tex, normal_tex = unpack_i16_pair(arow[SHA_TEX_MN])
+                    lum_tex, _ = unpack_i16_pair(arow[SHA_TEX_L_ABBE])
+                else:
+                    rough_tex = mats.roughness_tex[mat_id]
+                    metal_tex = mats.metallic_tex[mat_id]
+                    normal_tex = mats.normal_tex[mat_id]
+                    lum_tex = mats.luminance_tex[mat_id]
+                rr_, _, _, _ = sample_atlas(scene.textures, rough_tex, uu, vv,
+                                            lod=lod, trilinear=False)
+                mm_, _, _, _ = sample_atlas(scene.textures, metal_tex, uu, vv,
+                                            lod=lod, trilinear=False)
+                lane_mat = lane_mat._replace(
+                    roughness=torch.where(rough_tex >= 0, rr_, lane_mat.roughness),
+                    metallic=torch.where(metal_tex >= 0, mm_, lane_mat.metallic),
+                )
+                lr_, lg_, lb_, _ = sample_atlas(scene.textures, lum_tex, uu, vv,
+                                                lod=lod, trilinear=False)
+                em_r = torch.where(lum_tex >= 0, em_r * lr_, em_r)
+                em_g = torch.where(lum_tex >= 0, em_g * lg_, em_g)
+                em_b = torch.where(lum_tex >= 0, em_b * lb_, em_b)
+                nx_, ny_, nz_, _ = sample_atlas(scene.textures, normal_tex, uu,
+                                                vv, lod=lod, trilinear=False)
+                if use_rows:
+                    e1x_, e1y_ = unpack_f16_pair(arow[SHA_E1XY])
+                    e1z_, e2x_ = unpack_f16_pair(arow[SHA_E1Z2X])
+                    e2y_, e2z_ = unpack_f16_pair(arow[SHA_E2YZ])
+                    e1v = Vec3(e1x_, e1y_, e1z_)
+                    e2v = Vec3(e2x_, e2y_, e2z_)
+                else:
+                    e1v = vgather(geo.bvh.tri_e1, sl)
+                    e2v = vgather(geo.bvh.tri_e2, sl)
+                ns = _normal_mapped(ns, u0, v0, e1v, e2v, nx_, ny_, nz_,
+                                    normal_tex)
         wo = -direction
         if depth == 0 and with_gbuffer:
             if use_rows:  # mat_id u16 | (instance_id + 1) u16
@@ -307,10 +467,15 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     0.0),
             )
 
-        # ---- stochastic alpha test (opacity is 1 without cutouts) ----
+        # ---- stochastic alpha test: a cutout surface exists with
+        # probability opacity; pass-through lanes go straight on ----
         r_alpha = random_1d(RandomTarget.ALPHA_TEST, pixel_id, sample_id,
                             depth, bn=bn)
         pass_thru = hit_lane & (r_alpha >= lane_mat.opacity)
+
+        if fog_on:  # the scattering albedo at a fog collision
+            vol_alb = torch.where(vol_lane, fog.scatter_albedo, 1.0)
+            thr_r, thr_g, thr_b = thr_r * vol_alb, thr_g * vol_alb, thr_b * vol_alb
 
         # ---- emission on hit (one-sided), MIS vs light NEE ----
         emissive = (mat_flags & MAT_FLAG_EMISSIVE) != 0
@@ -318,10 +483,22 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         front_face = d_dot_ng < 0.0
         cos_light = torch.abs(d_dot_ng)
         pdf_nee = light_pdf_from_row(nee_sel_pdf, nee_area, hit.t, cos_light)
+        if lights.has_micro:
+            # the hit point's micro cell weight, as the sampler applies it:
+            # invert the sqrt warp at the hit barycentrics
+            mic16 = gather_planar(scene.shade_micro, slot)  # [16, N]
+            r1h = torch.clamp((1.0 - hit.u) * (1.0 - hit.u), 0.0, 0.999999)
+            r2h = torch.clamp(hit.v / torch.clamp(1.0 - hit.u, min=1e-6),
+                              0.0, 0.999999)
+            cellh = ((r1h * 4.0).to(torch.int32) * 4
+                     + (r2h * 4.0).to(torch.int32))
+            pdf_nee = pdf_nee * mic16.gather(0, cellh.long()[None])[0]
         w_emit = torch.where(prev_delta | ~prev_light_nee, 1.0,
                              mis_balance(prev_pdf, pdf_nee))
         add_emit = torch.where(hit_lane & emissive & front_face & ~pass_thru,
                                w_emit, 0.0)
+        if multi_bridge:  # those orders belong to the first vertex's bridges
+            add_emit = torch.where(vol_scattered, 0.0, add_emit)
         rad_r = rad_r + thr_r * em_r * add_emit
         rad_g = rad_g + thr_g * em_g * add_emit
         rad_b = rad_b + thr_b * em_b * add_emit
@@ -330,6 +507,9 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                              hit_pos.y + ng.y * _RAY_EPS,
                              hit_pos.z + ng.z * _RAY_EPS)
         nee_lane = hit_lane & ~lane_mat.translucent & ~pass_thru
+        if fog_on:
+            shadow_origin = vwhere(vol_lane, vol_pos, shadow_origin)
+            nee_lane = nee_lane | vol_lane
         frame = make_frame(lane_mat, ns, wo, scene.ggx_quad)
 
         # ---- NEE 1: the sun, RIS over {cone sample, BSDF proposal} ----
@@ -338,13 +518,23 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                                          bn=bn)
         (fs_r, fs_g, fs_b), pdf_b_sun = frame_eval(
             lane_mat, frame, lane_mat.roughness, sun_dir_s)
+        if fog_on:  # fog vertices scatter by the HG phase
+            phase_sun = hg_phase(dot(direction, sun_dir_s), fog.g)
+            fs_r = torch.where(vol_lane, phase_sun, fs_r)
+            fs_g = torch.where(vol_lane, phase_sun, fs_g)
+            fs_b = torch.where(vol_lane, phase_sun, fs_b)
+            pdf_b_sun = torch.where(vol_lane, phase_sun, pdf_b_sun)
+            cand1_ok = sun_nee_on & (vol_lane | (dot(sun_dir_s, ns) > 0.0))
+        else:
+            cand1_ok = sun_nee_on & (dot(sun_dir_s, ns) > 0.0)
         pdf_sun = _INV_SUN_SOLID_ANGLE
-        cand1_ok = sun_nee_on & (dot(sun_dir_s, ns) > 0.0)
         phat1 = _lum(fs_r, fs_g, fs_b)
         if config.sun_ris:
             wi_b2, _w2, pdf_s2, is_delta2, trans2 = material_sample(
                 lane_mat, frame, ns, wo, pixel_id, sample_id, depth + 64, bn=bn)
             sun2_on = (sun_nee_on & ~lane_mat.translucent & ~is_delta2 & ~trans2)
+            if fog_on:
+                sun2_on = sun2_on & ~vol_lane
             cand2_ok = (sun2_on & (dot(wi_b2, sun_v) >= SUN_COS_RADIUS)
                         & (dot(wi_b2, ns) > 0.0))
             (f2_r, f2_g, f2_b), pdf_eval2 = frame_eval(
@@ -379,6 +569,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         sun_ris_w = torch.where(
             sun_candidate, wsum_sun / torch.clamp(sel_phat_sun, min=1e-20), 0.0)
         rays_traced = rays_traced + sun_candidate.to(torch.float32).sum()
+        if fog_on:
+            t_fog_sun = fog_transmittance(fog, shadow_origin, sun_dir_w, 1e7)
 
         # ---- NEE 2: emissive triangles, RIS over K candidates ----
         k_ris = max(int(config.ris_candidates), 1)
@@ -388,6 +580,9 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         sel_le = (zeros, zeros, zeros)
         sel_dir = Vec3(zeros, zeros, ones)
         sel_dist = ones
+        if use_aux:  # the winner's point, for its luminance map
+            sel_slot = torch.zeros(n, dtype=torch.int32, device=dev)
+            sel_b1 = sel_b2 = zeros
         for k in range(k_ris):
             dk = depth * 8 + k
             if lights.has_tree and k == 0:
@@ -398,8 +593,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 cand = dict(slot=t_slot, pdf_select=t_pdf, sel_valid=t_valid)
             else:
                 cand = {}
-            (_l_slot, l_point, l_n, pdf_area, pdf_area_alias,
-             (le_r, le_g, le_b), l_valid, _bary) = sample_light_point(
+            (l_slot, l_point, l_n, pdf_area, pdf_area_alias,
+             (le_r, le_g, le_b), l_valid, (l_b1, l_b2)) = sample_light_point(
                 lights, scene.light_slot_rows if use_rows else None,
                 pixel_id, sample_id, dk, geo=geo, materials=mats, bn=bn,
                 **cand)
@@ -416,11 +611,17 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             pdf_mis_sa = (pdf_area_alias * dist * dist
                           / torch.clamp(cos_l, min=1e-8))
             cos_s = dot(l_dir, ns)
-            cand_ok = (nee_lane & l_valid & (cos_l > 1e-6) & (cos_s > 0.0)
+            cos_s_ok = cos_s > 0.0
+            cos_term = torch.clamp(cos_s, min=0.0)
+            if fog_on:
+                cos_s_ok = vol_lane | cos_s_ok
+                cos_term = torch.where(vol_lane, 1.0, cos_term)
+            cand_ok = (nee_lane & l_valid & (cos_l > 1e-6) & cos_s_ok
                        & (dist > 1e-5))
+            if multi_bridge:  # no geometry NEE after a fog scatter
+                cand_ok = cand_ok & ~vol_scattered
             lum_le = _lum(le_r, le_g, le_b)
-            phat = (lum_le * cos_l * torch.clamp(cos_s, min=0.0)
-                    * inv_dist * inv_dist)
+            phat = lum_le * cos_l * cos_term * inv_dist * inv_dist
             w_k = torch.where(
                 cand_ok & (pdf_l_sa > 1e-12) & (phat > 0.0),
                 phat / torch.clamp(pdf_l_sa, min=1e-12), 0.0)
@@ -437,18 +638,52 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                            for c, s in zip((le_r, le_g, le_b), sel_le))
             sel_dir = vwhere(take, l_dir, sel_dir)
             sel_dist = torch.where(take, dist, sel_dist)
+            if use_aux:
+                sel_slot = torch.where(take, l_slot, sel_slot)
+                sel_b1 = torch.where(take, l_b1, sel_b1)
+                sel_b2 = torch.where(take, l_b2, sel_b2)
         ris_w = torch.where(
             sel_phat > 0.0,
             wsum / (k_ris * torch.clamp(sel_phat, min=1e-20)), 0.0)
         (fl_r, fl_g, fl_b), pdf_b_l = frame_eval(
             lane_mat, frame, lane_mat.roughness, sel_dir)
+        if fog_on:
+            phase_l = hg_phase(dot(direction, sel_dir), fog.g)
+            fl_r = torch.where(vol_lane, phase_l, fl_r)
+            fl_g = torch.where(vol_lane, phase_l, fl_g)
+            fl_b = torch.where(vol_lane, phase_l, fl_b)
+            pdf_b_l = torch.where(vol_lane, phase_l, pdf_b_l)
         sel_w_mis = mis_balance(sel_pdf_sa, pdf_b_l)
         le_r, le_g, le_b = sel_le
         l_dir, dist = sel_dir, sel_dist
         light_candidate = wsum > 0.0
+        if use_aux:
+            # the luminance map at the sampled light point, so that NEE's Le
+            # equals the Le a BSDF hit there would see
+            wb0 = 1.0 - sel_b1 - sel_b2
+            if use_rows:
+                wrow = gather_packed_planar(scene.shade_aux, sel_slot, SHA_COLS)
+                wlum, _ = unpack_i16_pair(wrow[SHA_TEX_L_ABBE])
+                wu0, wv0 = unpack_f16_pair(wrow[SHA_UV0])
+                wu1, wv1 = unpack_f16_pair(wrow[SHA_UV1])
+                wu2, wv2 = unpack_f16_pair(wrow[SHA_UV2])
+                wuu = wu0 * wb0 + wu1 * sel_b1 + wu2 * sel_b2
+                wvv = wv0 * wb0 + wv1 * sel_b1 + wv2 * sel_b2
+            else:
+                ss = sel_slot.long()
+                wlum = mats.luminance_tex[geo.material_id[ss].long()]
+                wu3 = vgather(geo.uv_u, ss)
+                wv3 = vgather(geo.uv_v, ss)
+                wuu = wu3.x * wb0 + wu3.y * sel_b1 + wu3.z * sel_b2
+                wvv = wv3.x * wb0 + wv3.y * sel_b1 + wv3.z * sel_b2
+            wlr, wlg, wlb, _ = sample_atlas(scene.textures, wlum, wuu, wvv)
+            le_r = torch.where(wlum >= 0, le_r * wlr, le_r)
+            le_g = torch.where(wlum >= 0, le_g * wlg, le_g)
+            le_b = torch.where(wlum >= 0, le_b * wlb, le_b)
         rays_traced = rays_traced + light_candidate.to(torch.float32).sum()
 
-        # ---- all shadow rays in one batched any-hit walk ----
+        # ---- all shadow rays in one batched any-hit walk over the opaque
+        # geometry, then the cutouts' transparency ----
         shadow_o = Vec3(*(torch.cat([c, c]) for c in shadow_origin))
         shadow_d = Vec3(*(torch.cat([a, b]) for a, b in zip(sun_dir_w, l_dir)))
         shadow_t = torch.cat([torch.full((n,), MISS_DIST, device=dev),
@@ -457,14 +692,61 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         occ = trace_occluded(geo.bvh, shadow_o, shadow_d, shadow_t,
                              active=shadow_act)
         sun_occluded, l_occluded = occ[:n], occ[n:2 * n]
-        sun_w = torch.where(sun_candidate & ~sun_occluded, sun_ris_w, 0.0)
+        sun_w = sun_ris_w
+        if fog_on:
+            sun_w = sun_w * t_fog_sun
+        if cutouts:
+            trans = trace_transmission(geo.bvh, shadow_o, shadow_d, shadow_t,
+                                       active=shadow_act & ~occ)
+            sun_w = sun_w * trans[:n]
+        sun_w = torch.where(sun_candidate & ~sun_occluded, sun_w, 0.0)
         rad_r = rad_r + thr_r * fs_r * sun_rad3[0] * sun_w
         rad_g = rad_g + thr_g * fs_g * sun_rad3[1] * sun_w
         rad_b = rad_b + thr_b * fs_b * sun_rad3[2] * sun_w
-        l_w = torch.where(light_candidate & ~l_occluded, sel_w_mis * ris_w, 0.0)
+        l_w = sel_w_mis
+        if fog_on:
+            l_w = l_w * fog_transmittance(fog, shadow_origin, l_dir, dist)
+        l_w = l_w * ris_w
+        if cutouts:
+            l_w = l_w * trans[n:2 * n]
+        direct_lane = light_candidate & ~vol_lane if use_bridges else light_candidate
+        l_w = torch.where(direct_lane & ~l_occluded, l_w, 0.0)
         rad_r = rad_r + thr_r * fl_r * le_r * l_w
         rad_g = rad_g + thr_g * fl_g * le_g * l_w
         rad_b = rad_b + thr_b * fl_b * le_b * l_w
+
+        # ---- bridge volume NEE: fog vertices connect to the chosen light
+        # through 1..bridge_vertices scattering events (M = 1 is the
+        # direct connection) ----
+        if use_bridges:
+            y_pt = Vec3(shadow_origin.x + l_dir.x * dist,
+                        shadow_origin.y + l_dir.y * dist,
+                        shadow_origin.z + l_dir.z * dist)
+            (_b_dir, b_starts, b_dirs, b_lens, b_wpdf, b_phase, b_m) = (
+                sample_bridge(
+                    shadow_origin, y_pt, direction, fog.g,
+                    float(np.float32(fog.sigma_t) * np.float32(fog.scatter_albedo)),
+                    fog.sigma_t, config.bridge_vertices, pixel_id, sample_id,
+                    depth))
+            b_lane = vol_lane & light_candidate
+            b_occ = false
+            for i in range(config.bridge_vertices):
+                act_i = b_lane & (i < b_m) & ~b_occ
+                rays_traced = rays_traced + act_i.to(torch.float32).sum()
+                b_occ = b_occ | trace_occluded(
+                    geo.bvh, b_starts[i], b_dirs[i],
+                    torch.clamp(b_lens[i] - 2.0 * _RAY_EPS, min=0.0),
+                    active=act_i)
+            # with M >= 2 every order is the bridges' own (vol_scattered
+            # stops the forward chain); M = 1 is MIS-paired as the direct
+            # connection
+            bw = b_phase * b_wpdf * dist * dist * ris_w
+            if not multi_bridge:
+                bw = bw * sel_w_mis
+            bw = torch.where(b_lane & ~b_occ, bw, 0.0)
+            rad_r = rad_r + thr_r * le_r * bw
+            rad_g = rad_g + thr_g * le_g * bw
+            rad_b = rad_b + thr_b * le_b * bw
 
         # ---- bounce ----
         if depth + 1 < config.max_depth:
@@ -481,6 +763,17 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 torch.where(front_face, medium_push(medium, lane_mat.ior),
                             medium_pop(medium)),
                 medium)
+            if fog_on:
+                # fog lanes bounce by HG sampling: phase / pdf = 1
+                wi_vol = sample_hg_direction(direction, fog.g, pixel_id,
+                                             sample_id, depth, bn=bn)
+                pdf_vol = hg_phase(dot(direction, wi_vol), fog.g)
+                wi = vwhere(vol_lane, wi_vol, wi)
+                wr = torch.where(vol_lane, 1.0, wr)
+                wg = torch.where(vol_lane, 1.0, wg)
+                wb = torch.where(vol_lane, 1.0, wb)
+                pdf = torch.where(vol_lane, pdf_vol, pdf)
+                is_delta = torch.where(vol_lane, False, is_delta)
             wi = vwhere(pass_thru, direction, wi)
             wr = torch.where(pass_thru, 1.0, wr)
             wg = torch.where(pass_thru, 1.0, wg)
@@ -496,11 +789,13 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                      hit_pos.z + direction.z * _RAY_EPS),
                 Vec3(hit_pos.x + ng.x * off, hit_pos.y + ng.y * off,
                      hit_pos.z + ng.z * off))
+            if fog_on:
+                origin = vwhere(vol_lane, vol_pos, origin)
             direction = vwhere(active, wi, direction)
             prev_pdf = torch.where(active & ~pass_thru, pdf,
                                    torch.where(pass_thru, prev_pdf, 0.0))
             prev_delta = torch.where(active & ~pass_thru, is_delta, prev_delta)
-            refl_side = ~transmitted
+            refl_side = vol_lane | ~transmitted if fog_on else ~transmitted
             upd = active & ~pass_thru
             prev_sun_nee = torch.where(upd, sun_nee_on & refl_side,
                                        prev_sun_nee & pass_thru)
@@ -509,6 +804,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             prev_light_nee = torch.where(
                 upd, nee_lane & (lights.num_lights > 0) & refl_side,
                 prev_light_nee & pass_thru)
+            if multi_bridge:  # sticky for the rest of the path
+                vol_scattered = vol_scattered | vol_lane
 
             wmax = torch.maximum(torch.abs(wr), torch.maximum(torch.abs(wg),
                                                               torch.abs(wb)))

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from .scene.entities import Camera, Material, MaterialBaseSubstrate, SkyMode
-from .scene.mesh import Mesh
+from .scene.mesh import Mesh, Texture
 from .scene.scene import Scene
 
 
@@ -137,6 +137,20 @@ def sun_plane_scene(width: int = 64, height: int = 64) -> Scene:
     scene.set_entity("camera", cam)
     return scene
 
+def _uv_sphere_uvs(nu=16, nv=12) -> np.ndarray:
+    """Spherical UVs [T, 3, 2] of the triangles of :func:`_uv_sphere` (u
+    around, v from pole to pole; the seam's corners take u = 1)."""
+    uvs = []
+    for i in range(nu):
+        for j in range(nv - 1):
+            a = (i / nu, j / (nv - 1))
+            b = ((i + 1) / nu, j / (nv - 1))
+            a1 = (i / nu, (j + 1) / (nv - 1))
+            b1 = ((i + 1) / nu, (j + 1) / (nv - 1))
+            uvs += [[a, b, a1], [b, b1, a1]]
+    return np.asarray(uvs, np.float32)
+
+
 def _uv_sphere(cx, cy, cz, r, nu=16, nv=12):
     u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
     v = np.linspace(1e-3, np.pi - 1e-3, nv)
@@ -154,35 +168,13 @@ def _uv_sphere(cx, cy, cz, r, nu=16, nv=12):
     return verts, np.asarray(tris, np.int32)
 
 
-def benchmark_scene(
-    width: int = 1920,
-    height: int = 1080,
-    max_depth: int = 4,
-    nx: int = 19,
-    nz: int = 19,
-) -> Scene:
-    """The tree-tier benchmark: a ~130k-triangle sphere field on a ground
-    plane with mixed GGX materials (diffuse/rough-metal/mirror/emissive)
-    under the procedural sun + sky — an `Example.lum`-class scene
-    (BASELINE.md configs 2/4) exercising the wide-BVH traversal, NEE + MIS,
-    and the atmosphere, unlike the dense-tier Cornell box."""
-    scene = Scene()
-    mats = [
-        Material(albedo=(0.75, 0.71, 0.68, 1.0), roughness=0.8),   # matte
-        Material(albedo=(0.9, 0.6, 0.3, 1.0), roughness=0.25,
-                 metallic=True),                                    # copper
-        Material(albedo=(0.95, 0.95, 0.95, 1.0), roughness=0.05,
-                 metallic=True),                                    # mirror
-        Material(albedo=(0.2, 0.4, 0.8, 1.0), roughness=0.4),      # blue
-        Material(albedo=(0.0, 0.0, 0.0, 1.0),
-                 emission=(8.0, 7.0, 5.0), emission_active=True),  # lamp
-        Material(albedo=(0.5, 0.52, 0.5, 1.0), roughness=0.9),     # ground
-    ]
-    for m in mats:
-        scene.add_material(m)
-
+def _sphere_field(nx: int, nz: int):
+    """The bench field: nx x nz UV spheres of random radius on a ground
+    plane (seed 7) → (vertices, triangles, material ids, sphere index per
+    triangle (-1 for the ground), sphere count). Materials 0-3 are the
+    surfaces, 4 the lamp (every 23rd sphere), 5 the ground."""
     rng = np.random.default_rng(7)
-    verts_l, tris_l, mat_l, off = [], [], [], 0
+    verts_l, tris_l, mat_l, sph_l, off = [], [], [], [], 0
     for gx in range(nx):
         for gz in range(nz):
             r = float(rng.uniform(0.5, 1.1))
@@ -192,8 +184,8 @@ def benchmark_scene(
             # every 23rd sphere glows: "hundreds of emitters" light setup
             mat = 4 if (gx * nz + gz) % 23 == 0 else int(rng.integers(0, 4))
             mat_l.append(np.full(len(t), mat, np.uint16))
+            sph_l.append(np.full(len(t), gx * nz + gz, np.int32))
             off += len(v)
-    # ground plane
     g = np.asarray(
         [(-10, 0, -10), (nx * 2.5 + 10, 0, -10),
          (nx * 2.5 + 10, 0, nz * 2.5 + 10), (-10, 0, nz * 2.5 + 10)],
@@ -202,18 +194,23 @@ def benchmark_scene(
     verts_l.append(g)
     tris_l.append(np.asarray([[0, 1, 2], [0, 2, 3]], np.int32) + off)
     mat_l.append(np.full(2, 5, np.uint16))
+    sph_l.append(np.full(2, -1, np.int32))
+    return (np.concatenate(verts_l), np.concatenate(tris_l),
+            np.concatenate(mat_l), np.concatenate(sph_l), nx * nz)
 
-    mesh = Mesh(
-        vertices=np.concatenate(verts_l),
-        triangles=np.concatenate(tris_l),
-        material_ids=np.concatenate(mat_l),
-        name="bench_field",
-    )
-    scene.add_mesh(mesh)
-    inst = scene.new_instance()
-    inst.mesh_id = mesh.id
-    scene.set_instance(inst)
 
+_BENCH_MATERIALS = (
+    dict(albedo=(0.75, 0.71, 0.68, 1.0), roughness=0.8),   # matte
+    dict(albedo=(0.9, 0.6, 0.3, 1.0), roughness=0.25, metallic=True),  # copper
+    dict(albedo=(0.95, 0.95, 0.95, 1.0), roughness=0.05, metallic=True),  # mirror
+    dict(albedo=(0.2, 0.4, 0.8, 1.0), roughness=0.4),      # blue
+    dict(albedo=(0.0, 0.0, 0.0, 1.0), emission=(8.0, 7.0, 5.0),
+         emission_active=True),                            # lamp
+    dict(albedo=(0.5, 0.52, 0.5, 1.0), roughness=0.9),     # ground
+)
+
+
+def _bench_view(scene: Scene, width, height, max_depth, nx, nz) -> None:
     settings = scene.get_entity("settings")
     settings.width = width
     settings.height = height
@@ -231,7 +228,189 @@ def benchmark_scene(
     sky.azimuth = 1.0
     sky.altitude = 0.6
     scene.set_entity("sky", sky)
+
+
+def _add_mesh(scene: Scene, mesh: Mesh) -> None:
+    scene.add_mesh(mesh)
+    inst = scene.new_instance()
+    inst.mesh_id = mesh.id
+    scene.set_instance(inst)
+
+
+def benchmark_scene(
+    width: int = 1920,
+    height: int = 1080,
+    max_depth: int = 4,
+    nx: int = 19,
+    nz: int = 19,
+) -> Scene:
+    """The tree-tier benchmark: a ~130k-triangle sphere field on a ground
+    plane with mixed GGX materials (diffuse/rough-metal/mirror/emissive)
+    under the procedural sun + sky — an `Example.lum`-class scene
+    (BASELINE.md configs 2/4) exercising the wide-BVH traversal, NEE + MIS,
+    and the atmosphere, unlike the dense-tier Cornell box."""
+    scene = Scene()
+    for m in _BENCH_MATERIALS:
+        scene.add_material(Material(**m))
+    verts, tris, mats, _sph, _n = _sphere_field(nx, nz)
+    _add_mesh(scene, Mesh(vertices=verts, triangles=tris, material_ids=mats,
+                          name="bench_field"))
+    _bench_view(scene, width, height, max_depth, nx, nz)
     return scene
+
+
+def _content_textures():
+    """The content scene's textures, as uint8 images: a checker albedo, a
+    roughness ramp, a metallic stripe mask, a bumpy normal map, a striped
+    luminance map (diagonal bands narrower than a lamp triangle) and a leaf
+    (a disc of alpha 1 in a clear square)."""
+    res = 64
+    y, x = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    cell = (x // 8 + y // 8) % 2
+    checker = np.zeros((res, res, 4), np.uint8)
+    checker[..., 0] = np.where(cell == 0, 220, 40)
+    checker[..., 1] = np.where(cell == 0, 200, 90)
+    checker[..., 2] = np.where(cell == 0, 170, 60)
+    checker[..., 3] = 255
+    rough = (40 + 200 * x / (res - 1)).astype(np.uint8)[..., None]
+    metal = np.where((y // 16) % 2 == 0, 255, 0).astype(np.uint8)[..., None]
+    nx_ = 0.6 * np.sin(x / res * 8 * np.pi)
+    ny_ = 0.6 * np.cos(y / res * 6 * np.pi)
+    nz_ = np.sqrt(np.clip(1.0 - nx_ ** 2 - ny_ ** 2, 0.0, 1.0))
+    normal = (np.stack([nx_, ny_, nz_], -1) * 127.5 + 127.5).astype(np.uint8)
+    lum = np.repeat(np.where(((x + 2 * y) // 3) % 2 == 0, 255, 20).astype(
+        np.uint8)[..., None], 3, axis=-1)
+    leaf = np.zeros((res, res, 4), np.uint8)
+    disc = (x - 31.5) ** 2 + (y - 31.5) ** 2 < 26.0 ** 2
+    leaf[..., 0], leaf[..., 1], leaf[..., 2] = 70, 150, 40
+    leaf[..., 3] = np.where(disc, 255, 0)
+    return dict(checker=checker, rough=rough, metal=metal, normal=normal,
+                lum=lum, leaf=leaf)
+
+
+def content_scene(width: int = 1920, height: int = 1080, max_depth: int = 4,
+                  nx: int = 19, nz: int = 19, n_cards: int = 200,
+                  fog_density: float = 5.0, bridge_vertices: int = 2) -> Scene:
+    """The bench field (seed 7) with scene content: a checker albedo texture
+    on the ground; roughness, metallic and normal maps with spherical UVs on
+    every fourth non-lamp sphere; a luminance map on the lamp spheres (so
+    that emission importance varies over each emitter triangle); ``n_cards``
+    alpha-textured cards (quads whose leaf texture is clear outside a disc);
+    fog of ``fog_density`` below y = 12 with bridges of up to
+    ``bridge_vertices`` scattering events."""
+    scene = Scene()
+    tex = _content_textures()
+    ids = {k: scene.add_texture(Texture(data=v, gamma=2.2 if k in (
+        "checker", "leaf") else 1.0, name=k)) for k, v in tex.items()}
+    for m in _BENCH_MATERIALS:
+        scene.add_material(Material(**m))
+    ground = scene.get_material(5)
+    ground.albedo = (0.8, 0.8, 0.8, 1.0)
+    ground.albedo_tex = ids["checker"]
+    scene.set_material(ground)
+    lamp = scene.get_material(4)
+    lamp.luminance_tex = ids["lum"]
+    scene.set_material(lamp)
+    mapped = scene.add_material(Material(
+        albedo=(0.8, 0.75, 0.7, 1.0), roughness=0.5,
+        roughness_tex=ids["rough"], metallic_tex=ids["metal"],
+        normal_tex=ids["normal"]))
+    card = scene.add_material(Material(
+        albedo=(1.0, 1.0, 1.0, 1.0), roughness=0.7, albedo_tex=ids["leaf"]))
+
+    verts, tris, mats, sph, n_sph = _sphere_field(nx, nz)
+    uvs = np.zeros((len(tris), 3, 2), np.float32)
+    sphere_uvs = _uv_sphere_uvs()
+    per = sphere_uvs.shape[0]
+    uvs[:n_sph * per] = np.tile(sphere_uvs, (n_sph, 1, 1))
+    span = np.float32(max(nx, nz) * 2.5 + 20.0)
+    uvs[-2:] = np.asarray([[[0, 0], [1, 0], [1, 1]], [[0, 0], [1, 1], [0, 1]]],
+                          np.float32) * (span / 2.5)  # 2.5 m checker cells
+    mats = mats.copy()
+    mats[(sph >= 0) & (sph % 4 == 1) & (mats != 4)] = mapped
+
+    rng = np.random.default_rng(11)
+    cv, ct, cm, cuv = [], [], [], []
+    base = len(verts)
+    for i in range(n_cards):
+        c = np.asarray([rng.uniform(-1.0, nx * 2.5), rng.uniform(0.4, 2.8),
+                        rng.uniform(-1.0, nz * 2.5)], np.float32)
+        a, b = rng.normal(size=3), rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        b -= a * (a @ b)
+        b /= np.linalg.norm(b)
+        h = 0.5 * float(rng.uniform(0.6, 1.4))
+        quad = [c - h * a - h * b, c + h * a - h * b, c + h * a + h * b,
+                c - h * a + h * b]
+        cv += quad
+        k = base + 4 * i
+        ct += [[k, k + 1, k + 2], [k, k + 2, k + 3]]
+        cm += [card, card]
+        cuv += [[[0, 0], [1, 0], [1, 1]], [[0, 0], [1, 1], [0, 1]]]
+    if n_cards:
+        verts = np.concatenate([verts, np.asarray(cv, np.float32)])
+        tris = np.concatenate([tris, np.asarray(ct, np.int32)])
+        mats = np.concatenate([mats, np.asarray(cm, np.uint16)])
+        uvs = np.concatenate([uvs, np.asarray(cuv, np.float32)])
+    _add_mesh(scene, Mesh(vertices=verts, triangles=tris, uvs=uvs,
+                          material_ids=mats, name="content_field"))
+    _bench_view(scene, width, height, max_depth, nx, nz)
+    st = scene.get_entity("settings")
+    st.bridge_max_num_vertices = bridge_vertices
+    scene.set_entity("settings", st)
+    fog = scene.get_entity("fog")
+    fog.active = True
+    fog.density = fog_density
+    fog.height = 12.0
+    fog.dist = 500.0
+    scene.set_entity("fog", fog)
+    return scene
+
+
+def glass_sphere_scene(width: int = 32, height: int = 32) -> Scene:
+    """The ``glass_sphere_32`` golden scene: a glass sphere (IOR 1.5) on the
+    sun plane, depth 5 (refraction through the 2-deep medium stack)."""
+    s = sun_plane_scene(width, height)
+    mid = s.add_material(Material(
+        albedo=(1.0, 1.0, 1.0, 1.0), roughness=0.05,
+        base_substrate=MaterialBaseSubstrate.TRANSLUCENT, refraction_index=1.5))
+    v, t = _uv_sphere(0.0, 1.0, 0.0, 0.8)
+    _add_mesh(s, Mesh(vertices=v, triangles=t,
+                      material_ids=np.full(len(t), mid, np.uint16), name="glass"))
+    st = s.get_entity("settings")
+    st.max_ray_depth = 5
+    s.set_entity("settings", st)
+    return s
+
+
+def textured_scene(width: int = 32, height: int = 32) -> Scene:
+    """The ``textured_32`` golden scene: an 8x8-cell checker albedo
+    texture tiled 4 times over the sun plane."""
+    s = sun_plane_scene(width, height)
+    c = np.zeros((64, 64, 4), np.uint8)
+    cell = (np.arange(64) // 8)[:, None] + (np.arange(64) // 8)[None, :]
+    c[..., 0] = np.where(cell % 2 == 0, 230, 30)
+    c[..., 1] = np.where(cell % 2 == 0, 60, 200)
+    c[..., 2] = 60
+    c[..., 3] = 255
+    tex_id = s.add_texture(Texture(data=c, gamma=2.2))
+    m = s.get_material(0)
+    m.albedo_tex = tex_id
+    s.set_material(m)
+    s.meshes[0].uvs = np.asarray(
+        [[[0, 0], [4, 0], [4, 4]], [[0, 0], [4, 4], [0, 4]]], np.float32)
+    return s
+
+
+def fog_bridges_scene(width: int = 32, height: int = 32) -> Scene:
+    """The ``fog_bridges_32`` golden scene: the Cornell box in homogeneous
+    fog of density 0.35 (volume NEE and the bridge estimator)."""
+    s = cornell_scene(width, height, max_depth=4)
+    fog = s.get_entity("fog")
+    fog.active = True
+    fog.density = 0.35
+    s.set_entity("fog", fog)
+    return s
 
 
 def write_obj_scene(scene: Scene, directory: str, name: str = "scene") -> str:

@@ -82,6 +82,15 @@ SCENES = {
 }
 
 
+def rmse_over_scale(name: str, img: np.ndarray) -> float:
+    """RMSE of a [H, W, 3] render against ``tests/golden/<name>_64spp.npy``
+    over the golden's mean absolute value."""
+    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}_{SPP}spp.npy")).astype(np.float32)
+    assert img.shape == ref.shape and np.isfinite(img).all(), (img.shape, ref.shape)
+    rmse = float(np.sqrt(np.mean((img - ref) ** 2)))
+    return rmse / (float(np.abs(ref).mean()) + 1e-6)
+
+
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_port_render_matches_golden(name):
     scene = SCENES[name]()
@@ -89,11 +98,7 @@ def test_port_render_matches_golden(name):
     if name == "emitter_field_32":
         assert r.device_scene.lights.has_tree
     r.render_samples(SPP)
-    img = r.get_radiance()
-    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}_{SPP}spp.npy")).astype(np.float32)
-    assert np.isfinite(img).all()
-    rmse = float(np.sqrt(np.mean((img - ref) ** 2)))
-    scale = float(np.abs(ref).mean()) + 1e-6
-    assert rmse / scale < 0.02, (name, rmse, scale)
+    rel = rmse_over_scale(name, r.get_radiance())
+    assert rel < 0.02, (name, rel)
     assert r.sample_count == SPP
     assert r._last_rays_per_sample > 0

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,6 +41,8 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.frontend.benchmark\n"
         "import luminary_tpu_torch.ops.post, luminary_tpu_torch.ops.tonemap\n"
         "import luminary_tpu_torch.render.adaptive\n"
+        "import luminary_tpu_torch.ops.textures, luminary_tpu_torch.ops.volume\n"
+        "import luminary_tpu_torch.ops.bridges\n"
         # python -m luminary_tpu_torch --help: runs __main__ and the CLI
         "import contextlib, io, runpy\n"
         "sys.argv = ['luminary_tpu_torch', '--help']\n"
@@ -114,8 +117,6 @@ def _entity(name, **kw):
 
 
 def _textures(s):
-    import numpy as np
-
     s.add_texture(Texture(data=np.zeros((4, 4, 4), np.uint8)))
 
 
@@ -146,10 +147,7 @@ def _caustics(s):
 
 
 REFUSED = {
-    "use_textures": _with(_textures),
-    "use_aux_textures": _with(_aux_texture),
     "use_clouds": _with(_clouds),
-    "use_bridges": _with(_entity("fog", active=True)),
     "use_physical_camera": _with(_entity("camera", use_physical_camera=True)),
     "env_nee": _with(_entity("sky", mode=SkyMode.HDRI)),
     "spectral": _with(_settings(spectral_rendering=True)),
@@ -175,19 +173,51 @@ def _cutout(s):
     s.set_material(m)
 
 
-@pytest.mark.parametrize("case", ["cutout", "translucent_ok"])
+@pytest.mark.parametrize("case", ["translucent_ok"])
 def test_scene_level_refusals(case):
+    # a supported feature that shares code with refused ones: glass
     s = cornell_scene(8, 8)
+    m = s.get_material(0)
+    m.base_substrate = MaterialBaseSubstrate.TRANSLUCENT
+    s.set_material(m)
+    Renderer(s, device="cpu").render_samples(1)
+
+
+PORTED_CONTENT = {
+    "use_textures": _with(_textures),
+    "use_aux_textures": _with(_aux_texture),
+    "use_bridges": _with(_entity("fog", active=True)),
+    "cutout": _with(_cutout),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_CONTENT))
+def test_scene_content_packs_and_renders(case):
+    """Textures, aux texture ids, fog and cutouts, once refused, pack and
+    render one finite sample on the CPU."""
+    r = Renderer(PORTED_CONTENT[case](), device="cpu")
+    r.render_samples(1)
+    assert np.isfinite(r.get_radiance()).all()
     if case == "cutout":
-        _cutout(s)
-        with pytest.raises(NotImplementedError, match="cutout"):
-            Renderer(s, device="cpu")
+        assert r.device_scene.geo.bvh.has_cutouts
+    if case == "use_bridges":
+        assert r.config.use_bridges and r.device_scene.fog.on
+
+
+@pytest.mark.parametrize("feature", ["hdri", "ocean", "particles"])
+def test_unported_scene_features_still_refused(feature):
+    """The HDRI sky, the ocean and particles stay refused by the pack."""
+    from luminary_tpu_torch.render.device_scene import check_scene_supported
+
+    s = cornell_scene(8, 8)
+    if feature == "hdri":
+        _entity("sky", mode=SkyMode.HDRI)(s)
+    elif feature == "ocean":
+        _entity("ocean", active=True)(s)
     else:
-        # a supported feature that shares code with refused ones: glass
-        m = s.get_material(0)
-        m.base_substrate = MaterialBaseSubstrate.TRANSLUCENT
-        s.set_material(m)
-        Renderer(s, device="cpu").render_samples(1)
+        _entity("particles", active=True, count=16)(s)
+    with pytest.raises(NotImplementedError):
+        check_scene_supported(s)
 
 
 def test_cpu_render_launches_no_kernel():
