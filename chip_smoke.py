@@ -68,7 +68,26 @@ Phases, one or more lines each; any failure exits non-zero:
    samples, the peak memory of a sample and the launch counts from 0 of A
    (by table), unplanar, B (closest on the main table, any-hit on each
    table) and C; then the same scene at 64x36, 2 samples, on the card
-   against the plain CPU path (RMSE/scale < 1e-3).
+   against the plain CPU path (RMSE/scale < 1e-3);
+9. sky and sea at full width, ``outdoor_scene(1920, 1080, 4)`` (the bench
+   field at sea: the analytic ocean with water scattering and sun
+   caustics, the low and mid cloud layers), (a) under the DEFAULT sky with
+   the cloud march and cloud shadows, (b) under the HDRI sky baked at 2048
+   x 1024 with the clouds in the map and env NEE: the pack and HDRI bake
+   seconds, the peak memory of a sample, Mrays/s beside tree-1080p's, the
+   launches from 0 of A, unplanar, B closest and any-hit and C, the rays of
+   each any-hit launch, the time per call of the ocean march, the cloud
+   march and the caustic connection; kernel B any-hit on (b)'s 5-segment
+   shadow batch and its first 3 segments under phase 3's rule; the card
+   against the plain CPU path at 64x36 on the same sky tables (the card's
+   own sky bake held against the CPU's off the stars' texels, RMSE/scale
+   < 1e-4): RMSE/scale over all pixels reported, at most 2 pixels with
+   another decision (over 1e-2 of the scale apart), the rest within
+   RMSE/scale 1e-3 with clouds off, 1e-2 with clouds on; ``clouds_32`` at
+   64 spp against its golden (the full-image figure reported; RMSE/scale <
+   0.02 less at most 24 pixels more than 1e-2 of the scale apart, as
+   ``tests/test_torch_golden_sky.py`` holds it) and against the plain CPU
+   path (at most 8 pixels another decision, the rest within 1e-2).
 
 Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -78,6 +97,7 @@ prints no result.
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -968,6 +988,336 @@ def content_path(dev, smi, cuda_ms, bound) -> dict:
     return out
 
 
+def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
+    """Phase 9: sky and sea at full width (``outdoor_scene(1920, 1080, 4)``:
+    the bench field at sea, the analytic ocean with water scattering and
+    sun caustics, the low and mid cloud layers), in two variants: (a) the
+    DEFAULT sky with the cloud march on the miss side and cloud shadows,
+    (b) the HDRI sky baked at 2048 x 1024 with the clouds in the map and env
+    NEE (the shadow batch at its full 5 segments). For each: the pack (and
+    for (b) the HDRI bake) seconds, the peak memory of a sample, Mrays/s over
+    a block beside tree-1080p's, the launches from 0 of A, unplanar, B
+    closest, B any-hit and C, the rays of each any-hit launch and the time of
+    each call of the ocean march, the cloud march and the caustic
+    connection. Kernel B any-hit on (b)'s 5-segment batch (and its first 3
+    segments) against its plain version under phase 3's rule; the card
+    against the plain CPU path at 64x36 (clouds off within 1e-3, on within
+    1e-2); the ``clouds_32`` golden. Every failed check raises."""
+    import numpy as np
+    import torch
+
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops.sky import stars_radiance
+    from luminary_tpu_torch.ops.vec import Vec3
+    from luminary_tpu_torch.render import device_scene as D
+    from luminary_tpu_torch.render import wavefront as WF
+    from luminary_tpu_torch.render.renderer import Renderer
+    from luminary_tpu_torch.testing import clouds_scene, outdoor_scene
+
+    W, H = 1920, 1080
+    out = {}
+    marches = ("ocean_intersect", "ocean_crosses", "cloud_march",
+               "cloud_sun_transmittance", "sample_caustic_connection")
+
+    def instrumented_sample(r, capture):
+        """One sample with each march's calls timed by CUDA events and the
+        rays of each any-hit launch recorded (``capture``: the largest
+        any-hit batch's inputs are kept)."""
+        calls, sizes, saved = {}, [], {}
+        orig = {m: getattr(WF, m) for m in marches}
+        orig_launch = TR._launch
+
+        def timed(name, fn):
+            def wrap(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a, **k)
+                e1.record()
+                torch.cuda.synchronize()
+                calls.setdefault(name, []).append(e0.elapsed_time(e1))
+                return res
+            return wrap
+
+        def launch(rows, num_nodes, depth, origin, direction, t_max, active,
+                   any_hit, stats):
+            if any_hit and stats is None:
+                n_ = origin.x.shape[0]
+                sizes.append(n_)
+                if capture and n_ > saved.get("n", 0):
+                    saved.update(n=n_, rows=rows, o=origin, d=direction,
+                                 t=t_max, a=active)
+            return orig_launch(rows, num_nodes, depth, origin, direction,
+                               t_max, active, any_hit, stats)
+
+        for m in marches:
+            setattr(WF, m, timed(m, orig[m]))
+        TR._launch = launch
+        try:
+            r.render_samples(1)
+            torch.cuda.synchronize()
+        finally:
+            for m in marches:
+                setattr(WF, m, orig[m])
+            TR._launch = orig_launch
+        return calls, sizes, saved
+
+    for label, mode in (("a", 0), ("b", 1)):
+        v = {}
+        scene = outdoor_scene(W, H, 4, sky_mode=mode)
+        if mode == 1:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            D.pack_sky(scene, dev)
+            torch.cuda.synchronize()
+            v["hdri_bake_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        r = Renderer(scene, device=dev)
+        torch.cuda.synchronize()
+        v["pack_s"] = time.monotonic() - t0
+        ds, cfg = r.device_scene, r.config
+        assert cfg.analytic_ocean and cfg.water_scatter and cfg.ocean_caustics
+        assert cfg.cloud_layers == (0, 1)
+        assert cfg.use_clouds == (mode == 0) and cfg.env_nee == (mode == 1)
+        segs = 2 + (mode == 1) + 2
+        r.render_samples(1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r.render_samples(1)
+        v["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        v["peak_above_mb"] = v["peak_mb"] - base / 1e6
+        _path_counts(zero=True)
+        block = 3
+        t0 = time.monotonic()
+        r.render_samples(block)
+        dt = time.monotonic() - t0
+        counts = _path_counts()
+        v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
+                 mrays=r._last_rays_traced / dt / 1e6, launches=counts,
+                 rays_per_sample=r._last_rays_per_sample)
+        assert all(c > 0 for c in counts.values()), counts
+        calls, sizes, saved = instrumented_sample(r, capture=mode == 1)
+        v["march_ms"] = {m: dict(calls=len(c), ms_per_call=float(np.mean(c)),
+                                 ms=[float(x) for x in c])
+                         for m, c in calls.items()}
+        v["rays_per_any_hit_launch"] = sizes
+        n = r._px.shape[0]
+        assert sizes and max(sizes) == segs * n, (sizes, segs, n)
+        acc = r.accum.radiance[:W * H]
+        finite = bool(torch.isfinite(acc).all())
+        assert finite and float(acc.sum()) > 0.0
+        log("[sky-sea %s] %dx%d depth 4, %s sky, ocean + caustics + clouds "
+            "low/mid: pack %.2f s%s; peak memory of a sample %.1f MB (%.1f MB "
+            "above the %.1f MB before it); %d samples in %.3f s: %.3f Mrays/s "
+            "(tree-1080p %.3f in this run; %.0f rays/sample); launches %s; "
+            "rays per any-hit launch %s | %s" % (
+                label, W, H, "DEFAULT" if mode == 0 else "HDRI 2048x1024",
+                v["pack_s"], (", HDRI bake %.2f s" % v["hdri_bake_s"])
+                if mode == 1 else "", v["peak_mb"], v["peak_above_mb"],
+                base / 1e6, block, dt, v["mrays"], tree["mrays"],
+                v["rays_per_sample"], counts, sizes, smi))
+        log("[sky-sea %s marches] ms per call (calls in one sample): %s | %s" % (
+            label, ", ".join("%s %.3f (%d)" % (m, c["ms_per_call"], c["calls"])
+                             for m, c in v["march_ms"].items()), smi))
+        if mode == 1:
+            v["kernel_b"] = _any_hit_on_batch(saved, n, ds, cuda_ms, bound, smi)
+        out[label] = v
+        del r, acc, saved
+        torch.cuda.empty_cache()
+
+    # the card against the plain CPU path: 64x36, depth 4, 2 samples, on the
+    # same sky tables (packed on the CPU and carried to the card: with env
+    # NEE the alias table of a map baked apart decides other cells). The
+    # card's own bake is held against the CPU's apart, off the stars' texels
+    # (the stars are a 3e-4 rad Gaussian in float32, whose texels differ):
+    # RMSE/scale under 1e-4 (1.03e-5 to 1.06e-5 measured on an H100). A
+    # pixel more than 1e-2 of the scale apart took another decision on the
+    # card (a miss direction at the solar disc's edge, from ulps of the
+    # sampling's transcendentals; one such pixel of 2304 measured in (a), a
+    # lane traced to it): at most 2 may, and the bound holds on the rest.
+    out["card_vs_cpu"] = {}
+    for mode in (0, 1):
+        for clouds in (False, True):
+            def make():
+                return outdoor_scene(64, 36, 4, sky_mode=mode, clouds=clouds,
+                                     hdri_dim=256)
+            sky_c = D.pack_sky(make(), "cpu")
+            sky_g = D.pack_sky(make(), dev)
+            env_c = sky_c.env_rows[:, :3].numpy()  # each texel's own rgb
+            env_g = sky_g.env_rows[:, :3].cpu().numpy()
+            bake_rel = float(np.sqrt(np.mean((env_g - env_c) ** 2))
+                             / (np.abs(env_c).mean() + 1e-12))
+            # the same off the stars' texels (HDRI maps hold the stars)
+            dirs = torch.as_tensor(D._latlong_dirs(sky_c.env_h, sky_c.env_w))
+            star = (stars_radiance(sky_c, Vec3(*dirs.unbind(1)))[1] > 0.0).numpy()
+            bake_rel_off = float(np.sqrt(np.mean((env_g - env_c)[~star] ** 2))
+                                 / (np.abs(env_c).mean() + 1e-12))
+            imgs = {}
+            for d in (dev, "cpu"):
+                rr = Renderer(make(), device=d)
+                rr.device_scene = rr.device_scene._replace(sky=dataclasses.replace(
+                    sky_c, **{f.name: getattr(sky_c, f.name).to(d)
+                              for f in dataclasses.fields(sky_c)
+                              if isinstance(getattr(sky_c, f.name), torch.Tensor)}))
+                t0 = time.monotonic()
+                rr.render_samples(2)
+                imgs[str(d)] = (rr.get_radiance(), time.monotonic() - t0)
+            (img_g, _), (img_c, cpu_s) = imgs[str(dev)], imgs["cpu"]
+            key = "%s clouds %s" % ("a" if mode == 0 else "b",
+                                    "on" if clouds else "off")
+            v = _card_vs_cpu(img_g, img_c, 1e-2 if clouds else 1e-3, 2)
+            v.update(cpu_s=cpu_s, sky_bake_rmse_over_scale=bake_rel,
+                     sky_bake_off_stars=bake_rel_off, sky_bake_bound=1e-4)
+            v["ok"] = v["ok"] and bake_rel_off < 1e-4
+            log("[sky-sea vs cpu] %s, 64x36 depth 4, 2 samples: card against "
+                "the plain CPU path RMSE/scale %.3g over all pixels, %d of %d "
+                "pixels another decision (over 1e-2 of the scale apart, at most "
+                "%d), %.3g over the rest (bound %g); max abs %.3g; the card's "
+                "sky bake against the CPU's RMSE/scale %.3g (%.3g off the "
+                "stars' texels, bound 1e-4); the CPU took %.1f s | %s" % (
+                    key, v["rmse_over_scale"], v["other_decision_pixels"],
+                    v["pixels"], v["max_other"], v["rest_rmse_over_scale"],
+                    v["bound"],
+                    v["max_abs"], bake_rel, bake_rel_off, cpu_s, smi))
+            assert np.isfinite(img_g).all() and v["ok"], (key, v)
+            out["card_vs_cpu"][key] = v
+
+    # the clouds_32 golden on the card, under tests/test_torch_golden_sky.py's
+    # rule: RMSE/scale < 0.02 over the image less at most 24 pixels more
+    # than 1e-2 of the scale apart (grazing rays whose march inputs differ
+    # from the reference's by ulps, on which the reference's own march
+    # moves by up to 100 %; 13 on an x86 CPU, 15 on an H100, 73 with the
+    # hash rounded op by op); the full-image figure is reported. And the
+    # card against the plain CPU path, at most 8 pixels another decision
+    # (3 measured on an H100).
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ref = np.load(os.path.join(repo, "tests", "golden", "clouds_32_64spp.npy"))
+    rg = Renderer(clouds_scene(), device=dev)
+    rg.render_samples(64)
+    img = rg.get_radiance()
+    scale = float(np.abs(ref).mean()) + 1e-6
+    rel = float(np.sqrt(np.mean((img - ref) ** 2)) / scale)
+    apart = np.abs(img - ref).max(axis=-1) > 1e-2 * scale
+    rest = float(np.sqrt(np.mean((img - ref)[~apart] ** 2)) / scale)
+    rc = Renderer(clouds_scene(), device="cpu")
+    rc.render_samples(64)
+    v = _card_vs_cpu(img, rc.get_radiance(), 1e-2, 8)
+    log("[golden] clouds_32 at 64 spp on the card: RMSE/scale %.3g against "
+        "the golden over the image, %d of %d pixels more than 1e-2 of the "
+        "scale apart (at most 24), %.3g over the rest (bound 0.02); the card "
+        "against the plain CPU path RMSE/scale %.3g over all pixels, %d "
+        "pixels another decision (at most 8), %.3g over the rest (bound "
+        "1e-2) | %s" % (rel, int(apart.sum()), apart.size, rest,
+                        v["rmse_over_scale"], v["other_decision_pixels"],
+                        v["rest_rmse_over_scale"], smi))
+    assert np.isfinite(img).all() and apart.sum() <= 24 and rest < 0.02, (
+        int(apart.sum()), rest, rel)
+    assert v["ok"], v
+    out["clouds_32"] = dict(rmse_over_scale=rel, apart_pixels=int(apart.sum()),
+                            rest_rmse_over_scale=rest, card_vs_cpu=v)
+    return out
+
+
+def _card_vs_cpu(img_g, img_c, bound, max_other) -> dict:
+    """The card's image against the plain CPU path's: RMSE/scale over all
+    pixels; the pixels more than 1e-2 of the scale apart (another decision
+    on the card in one of their samples), at most ``max_other`` of them;
+    RMSE/scale over the rest within ``bound``."""
+    import numpy as np
+
+    scale = float(np.abs(img_c).mean()) + 1e-6
+    d = np.abs(img_g - img_c).max(axis=-1)
+    other = d > 1e-2 * scale
+    rest = float(np.sqrt(np.mean((img_g - img_c)[~other] ** 2)) / scale)
+    return dict(
+        rmse_over_scale=float(np.sqrt(np.mean((img_g - img_c) ** 2)) / scale),
+        max_abs=float(d.max()), pixels=int(d.size),
+        other_decision_pixels=int(other.sum()), max_other=max_other,
+        rest_rmse_over_scale=rest, bound=bound,
+        ok=bool(other.sum() <= max_other and rest < bound))
+
+
+def _any_hit_on_batch(saved, n, ds, cuda_ms, bound, smi) -> dict:
+    """Kernel B any-hit on a sample's 5-segment shadow batch (sun, light,
+    env, caustic x→P, caustic P→sun; the largest any-hit launch of the
+    sample) and on its first 3 segments, against the plain walk on every
+    7th lane: a lane where they differ must be a kernel hit that brute force
+    over all triangles confirms; no lane may be occluded only in the plain
+    walk. Time, plain time (on those lanes), bound (each ray's own walk)."""
+    import torch
+
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops.intersect import ray_triangle
+    from luminary_tpu_torch.ops.vec import Vec3
+
+    bvh = ds.geo.bvh
+    rows = saved["rows"]
+    res = {}
+    for segs in (5, 3):
+        m = segs * n
+        o = Vec3(*(c[:m] for c in saved["o"]))
+        d = Vec3(*(c[:m] for c in saved["d"]))
+        t, a = saved["t"][:m], saved["a"][:m]
+        occ = TR.traverse_wide(rows, bvh.num_nodes, bvh.depth, o, d, t, a, True)
+        ix = torch.arange(0, m, 7, device=t.device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        ref = TR.traverse_wide_plain(rows, bvh.num_nodes, bvh.depth,
+                                     Vec3(*(c[ix] for c in o)),
+                                     Vec3(*(c[ix] for c in d)), t[ix], a[ix],
+                                     True)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        kernel_only = ix[torch.nonzero(occ[ix] & ~ref).flatten()]
+        plain_only = ix[torch.nonzero(~occ[ix] & ref).flatten()]
+        tris = [Vec3(*(c[None] for c in v))
+                for v in (bvh.tri_v0, bvh.tri_e1, bvh.tri_e2)]
+        confirmed = 0
+        for s in range(0, kernel_only.numel(), 32):
+            lanes = kernel_only[s:s + 32]
+            tt, _u, _v, hit = ray_triangle(Vec3(*(c[lanes, None] for c in o)),
+                                           Vec3(*(c[lanes, None] for c in d)),
+                                           *tris)
+            confirmed += int((hit & (tt < t[lanes, None])).any(dim=1).sum())
+        per_seg = [int(a[k * n:(k + 1) * n].sum()) for k in range(segs)]
+        log("[kernel B any-hit, %d-segment batch] %d lanes vs plain: %d only "
+            "the kernel finds occluded (%d confirmed by brute force), %d only "
+            "the plain walk; %d occluded; active rays per segment %s" % (
+                segs, ix.numel(), kernel_only.numel(), confirmed,
+                plain_only.numel(), int(ref.sum()), per_seg))
+        assert plain_only.numel() == 0 and confirmed == kernel_only.numel(), (
+            segs, int(plain_only.numel()), int(kernel_only.numel()), confirmed)
+        ms = cuda_ms(lambda: TR.traverse_wide(rows, bvh.num_nodes, bvh.depth, o,
+                                              d, t, a, True), iters=5)
+        stats = {}
+        TR.traverse_wide(rows, bvh.num_nodes, bvh.depth, o, d, t, a, True,
+                         stats=stats)
+        own = per_ray_tests(rows, bvh.num_nodes, bvh.depth, o, d, t, a, True)
+        # bytes: the 32-byte row of each active ray (an inactive ray's row
+        # need not be read), the active flag and the result byte of every
+        # ray, and the table
+        n_active = int(a.sum())
+        b_ms, b_by = bound(n_active * 32 + 2 * m + rows.numel() * 4,
+                           own["node_tests"] * SLAB_OPS + own["tri_tests"] * TRI_OPS)
+        log("[kernel B any-hit, %d-segment batch] %d rays: %.3f ms, plain %.3f "
+            "ms on %d of them, bound %.4f ms (%s; the rays' own walks %d slab "
+            "+ %d triangle tests, the 32-ray packets %d + %d) | %s" % (
+                segs, m, ms, plain_ms, ix.numel(), b_ms, b_by,
+                own["node_tests"], own["tri_tests"], stats["node_tests"],
+                stats["tri_tests"], smi))
+        res["%d_segments" % segs] = dict(
+            rays=m, active_rays=n_active, active_per_segment=per_seg, ms=ms,
+            plain_ms=plain_ms,
+            plain_lanes=int(ix.numel()), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, kernel_only_confirmed_lanes=confirmed,
+            checked_lanes=int(ix.numel()), tests=own, packet_tests=stats)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="DIR",
@@ -1692,6 +2042,15 @@ def main() -> int:
     for k in kern:
         if k["name"] in content["path"]["launches"]:
             k["content_launches"] = content["path"]["launches"][k["name"]]
+
+    # ---- 9. sky and sea at full width ----
+    sky_sea = sky_sea_path(dev, smi, cuda_ms, bound, report["tree_1080p"])
+    report["sky_sea"] = sky_sea
+    by_name["traverse_wide.any_hit"]["sky_sea_batches"] = sky_sea["b"]["kernel_b"]
+    for k in kern:
+        for v in ("a", "b"):
+            if k["name"] in sky_sea[v]["launches"]:
+                k["sky_sea_%s_launches" % v] = sky_sea[v]["launches"][k["name"]]
     report["kernels"] = kern
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,10 +1,13 @@
-"""Sky radiance evaluation (port of ``luminary_tpu/ops/sky.py``; DEFAULT and
-CONSTANT_COLOR modes).
+"""Sky radiance evaluation (port of ``luminary_tpu/ops/sky.py``; DEFAULT,
+HDRI and CONSTANT_COLOR modes).
 
-The DEFAULT atmosphere is baked at pack time into a lat-long map stored as
-bilinear-quad rows; a miss is one kernel-A row gather plus a lerp. The solar
-disc stays analytic; moon and stars are procedural. Aerial perspective reads
-one 128-column distance-curve row per lane, also through kernel A.
+The DEFAULT atmosphere (and the HDRI map: the baked atmosphere with moon,
+stars and clouds folded in, or a user's image) is stored at pack time as a
+lat-long map of bilinear-quad rows; a miss is one kernel-A row gather plus
+a lerp. The solar disc stays analytic; in DEFAULT mode moon and stars are
+procedural. Aerial perspective reads one 128-column distance-curve row per
+lane, also through kernel A. Environment NEE draws a cell of the map by its
+alias row and a direction uniformly inside it.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from .atmosphere import AERIAL_D_MAX, AERIAL_D_MIN, AERIAL_ND, AERIAL_NS, AERIAL_NU
 from .random import M32
 from .rowops import gather_planar
-from .vec import Vec3, dot as vdot, normalize
+from .vec import Vec3, dot as vdot, normalize, sdiv
 
 MOON_ANGULAR_RADIUS = 0.00452
 MOON_COS_RADIUS = 0.999989786
@@ -161,6 +164,8 @@ def sky_radiance(sky, direction: Vec3, include_sun: bool = True) -> Vec3:
     g = g + disc * sky.sun_disc_radiance[1]
     b = b + disc * sky.sun_disc_radiance[2]
 
+    if int(sky.mode) != 0:  # an HDRI map holds its moon and stars
+        return Vec3(r, g, b)
     moon, in_moon = moon_radiance(sky, d)
     sr, sg, sb = stars_radiance(sky, d)
     block = in_moon | in_disc
@@ -200,6 +205,45 @@ def aerial_fetch(sky, direction: Vec3, dist):
     ins = tuple(c * fade for c in curve(0))
     tr = tuple(1.0 + (c - 1.0) * fade for c in curve(48))
     return tr, ins
+
+
+def sample_env_direction(sky, pixel_id, sample_id, depth, bn=None):
+    """Draw a direction toward the environment by cell importance: one
+    alias-row lookup picks a lat-long cell (``RandomTarget.LIGHT_AMBIENT``
+    sub-stream 2 depth), the direction is uniform in its solid angle
+    (sub-stream 2 depth + 1) → (dir Vec3, pdf per steradian [N])."""
+    from .random import RandomTarget, random_2d
+
+    k = sky.env_alias_rows.shape[0]
+    ch, cw = float(sky.env_ch), float(sky.env_cw)
+    r = random_2d(RandomTarget.LIGHT_AMBIENT, pixel_id, sample_id, 2 * depth,
+                  bn=bn)
+    idx = torch.clamp((r[..., 0] * k).to(torch.int32), max=k - 1)
+    row = sky.env_alias_rows[idx.long()]  # [N, 8]
+    take_alias = r[..., 1] >= row[:, 0]
+    cell = torch.where(take_alias, row[:, 3], row[:, 1]).view(torch.int32)
+    pdf_sr = torch.where(take_alias, row[:, 4], row[:, 2])
+    cy = torch.div(cell, int(sky.env_cw), rounding_mode="floor").to(torch.float32)
+    cx = torch.remainder(cell, int(sky.env_cw)).to(torch.float32)
+    j = random_2d(RandomTarget.LIGHT_AMBIENT, pixel_id, sample_id, 2 * depth + 1,
+                  bn=bn)
+    phi = sdiv(cx + j[..., 0], cw) * _TWO_PI
+    ct0 = torch.cos(sdiv(cy, ch) * np.pi)
+    ct1 = torch.cos(sdiv(cy + 1.0, ch) * np.pi)
+    ct = ct0 + (ct1 - ct0) * j[..., 1]
+    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    return Vec3(torch.cos(phi) * st, ct, torch.sin(phi) * st), pdf_sr
+
+
+def env_pdf(sky, d: Vec3) -> torch.Tensor:
+    """The pdf per steradian with which sample_env_direction draws ``d``
+    (the MIS counterpart of BSDF rays that escape to the sky)."""
+    ch, cw = int(sky.env_ch), int(sky.env_cw)
+    theta = torch.arccos(torch.clamp(d.y, -1.0, 1.0))
+    phi = torch.atan2(d.z, d.x) % _TWO_PI
+    cy = torch.clamp((theta * (1.0 / np.pi) * float(ch)).to(torch.int32), 0, ch - 1)
+    cx = torch.clamp((phi * (0.5 / np.pi) * float(cw)).to(torch.int32), 0, cw - 1)
+    return sky.env_cell_pdf[(cy * cw + cx).long()]
 
 
 def sun_solid_angle_radiance(sky) -> torch.Tensor:

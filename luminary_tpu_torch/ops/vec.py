@@ -65,6 +65,13 @@ def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(t, num), t)
 
 
+def sdiv(t: torch.Tensor, c: float) -> torch.Tensor:
+    """``t / c`` for a host scalar ``c`` with one IEEE division on every
+    device (on the card PyTorch multiplies by the float reciprocal of a host
+    scalar, one more rounding), so that the card and the CPU agree."""
+    return torch.div(t, torch.full_like(t, c))
+
+
 def dot(a: Vec3, b: Vec3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 

@@ -15,8 +15,10 @@ The aux table keeps the reference's f16 tangent edges (``SHA_E1XY`` ..
 as inf, and a normal map on that triangle then gives a NaN shading normal,
 as in the reference.
 
-Features this slice does not port are refused with NotImplementedError, never
-stubbed: HDRI skies, the ocean and particles.
+The sky packs in all three modes (DEFAULT, HDRI baked or from a user map,
+CONSTANT_COLOR); the ocean adds its water material (and, tessellated, its
+mesh) and the water and cloud parameters ride along. Particles are refused
+with NotImplementedError, never stubbed.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from ..bvh.native import build_wide_native
 from ..device import resolve_device
+from ..ops.clouds import DeviceClouds, pack_clouds
 from ..ops.ggx import ggx_energy_quad
 from ..ops.lights import DeviceLights, build_alias_table, lights_to_device, pack_lights_np
 from ..ops.textures import (
@@ -39,7 +42,8 @@ from ..ops.textures import (
 )
 from ..ops.traverse import DeviceBVH, pack_device_bvh
 from ..ops.vec import Vec3
-from ..ops.volume import DeviceFog, pack_fog
+from ..ops.procedural import OCEAN_INSTANCE_ID, generate_ocean_mesh
+from ..ops.volume import DeviceFog, DeviceWater, pack_fog, pack_water
 from ..scene.entities import TEXTURE_NONE, Material, MaterialBaseSubstrate
 from ..scene.scene import Scene
 from ..utils.errors import InvalidAPIArgumentError
@@ -120,7 +124,8 @@ class DeviceMaterials(NamedTuple):
 
 @dataclass
 class DeviceSky:
-    """Baked sky (DEFAULT) or constant colour; host ints for shapes/modes."""
+    """Baked sky (DEFAULT), HDRI map or constant colour; host ints for
+    shapes and modes."""
 
     mode: int
     constant_color: torch.Tensor  # f32 [3]
@@ -161,6 +166,8 @@ class DeviceScene(NamedTuple):
     sky: DeviceSky
     lights: DeviceLights
     fog: DeviceFog
+    water: DeviceWater
+    clouds: DeviceClouds
     textures: DeviceTextures
     shade_hot: torch.Tensor  # i32 [P, SHP_COLS]
     shade_aux: torch.Tensor  # i32 [P, SHA_COLS]
@@ -268,6 +275,19 @@ def flatten_instances(scene: Scene):
         mats_l.append(mesh.material_ids.astype(np.int32))
         insts_l.append(np.full(mesh.num_triangles, inst.id, np.int32))
         prims_l.append(np.arange(mesh.num_triangles, dtype=np.int32))
+    # the (opt-in) tessellated ocean: a camera-centred displaced grid with
+    # the procedural water material (the analytic ocean adds no geometry)
+    if scene.ocean.active and getattr(scene.ocean, "tessellated", False):
+        oc_c, oc_n = generate_ocean_mesh(
+            scene.ocean, center_xz=(scene.camera.pos[0], scene.camera.pos[2]))
+        t_o = oc_c.shape[0]
+        corners_l.append(oc_c)
+        normals_l.append(oc_n)
+        uvs_l.append(np.zeros((t_o, 3, 2), np.float32))
+        mats_l.append(np.full(t_o, len(scene.materials) if scene.materials
+                              else 1, np.int32))
+        insts_l.append(np.full(t_o, OCEAN_INSTANCE_ID, np.int32))
+        prims_l.append(np.arange(t_o, dtype=np.int32))
     if not corners_l:
         z = np.zeros((0, 3, 3), np.float32)
         e = np.zeros(0, np.int32)
@@ -435,9 +455,21 @@ def upload_geometry(hg: HostGeometry, device) -> DeviceSceneGeo:
     )
 
 
+def procedural_materials(scene: Scene) -> list[Material]:
+    """Materials appended after the user's: the ocean's water (id
+    num_materials when the ocean is on)."""
+    if not scene.ocean.active:
+        return []
+    return [Material(albedo=(0.9, 0.95, 1.0, 1.0),
+                     base_substrate=MaterialBaseSubstrate.TRANSLUCENT,
+                     refraction_index=scene.ocean.refractive_index,
+                     roughness=0.05)]
+
+
 def materials_np(scene: Scene) -> dict:
-    """Material table as numpy arrays (DeviceMaterials fields)."""
-    mats = scene.materials or [Material()]
+    """Material table as numpy arrays (DeviceMaterials fields), the
+    procedural materials last."""
+    mats = (scene.materials or [Material()]) + procedural_materials(scene)
     flags = np.zeros(len(mats), np.int32)
     for i, mat in enumerate(mats):
         f = 0
@@ -592,11 +624,14 @@ def pack_shade_rows(hg: HostGeometry, mats: dict, lights: dict) -> np.ndarray:
     Where the reference would wrap or overflow, this raises
     ``InvalidAPIArgumentError``: a material id or ``instance_id + 1`` that
     does not fit the word's 16 bits, or a pre-scaled emission component
-    above 65504, the largest finite f16."""
+    above 65504, the largest finite f16. The tessellated ocean's procedural
+    instance id wraps as in the reference (its slots read back as
+    instance 0)."""
     p = hg.material_id.shape[0]
     mat = hg.material_id.astype(np.int64)
     inst = hg.instance_id.astype(np.int64)
-    for name, v in (("material id", mat), ("instance id + 1", inst + 1)):
+    user_inst = inst[inst != OCEAN_INSTANCE_ID]
+    for name, v in (("material id", mat), ("instance id + 1", user_inst + 1)):
         if v.size and int(v.max()) > 0xFFFF:
             raise InvalidAPIArgumentError(
                 "%s %d does not fit the shade row's 16 bits" % (name, int(v.max())))
@@ -739,9 +774,69 @@ def _build_env_nee(env: np.ndarray, is_constant: bool):
     return rows, pdf_sr, ch, cw, total
 
 
+def _latlong_dirs(height: int, width: int) -> np.ndarray:
+    """Unit direction per lat-long texel centre → f32 [H*W, 3] (y up)."""
+    v = (np.arange(height) + 0.5) / height
+    u = (np.arange(width) + 0.5) / width
+    theta = v * np.pi
+    phi = u * 2.0 * np.pi
+    st = np.sin(theta)[:, None]
+    d = np.stack([np.broadcast_to(st * np.cos(phi)[None, :], (height, width)),
+                  np.broadcast_to(np.cos(theta)[:, None], (height, width)),
+                  np.broadcast_to(st * np.sin(phi)[None, :], (height, width))],
+                 axis=-1)
+    return d.reshape(-1, 3).astype(np.float32)
+
+
+def _bake_hdri_extras(scene: Scene, env: torch.Tensor, sun_dir: np.ndarray,
+                      sun_disc: torch.Tensor) -> torch.Tensor:
+    """HDRI mode folds moon, stars and the cloud layers into the baked map
+    [H, W, 3] (on its device); only the solar disc stays analytic."""
+    from types import SimpleNamespace
+
+    from ..ops.clouds import active_layer_indices, cloud_march
+    from ..ops.sky import moon_radiance, stars_radiance
+
+    device = env.device
+    h, w = env.shape[:2]
+    dirs = torch.as_tensor(_latlong_dirs(h, w), device=device)
+    d = Vec3(dirs[:, 0], dirs[:, 1], dirs[:, 2])
+    sky = scene.sky
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    dsky = SimpleNamespace(
+        sun_dir=f32(sun_dir),
+        moon_dir=f32(sun_direction(sky.moon_azimuth, sky.moon_altitude)),
+        moon_tex_offset=f32(sky.moon_tex_offset),
+        stars_seed=int(sky.stars_seed), stars_count=int(sky.stars_count),
+        stars_intensity=f32(sky.stars_intensity))
+    moon, in_moon = moon_radiance(dsky, d)
+    stars = stars_radiance(dsky, d)
+    ch = [env[:, :, c].reshape(-1) + (moon + torch.where(in_moon, 0.0, stars[c]))
+          for c in range(3)]
+    cloud_layers = active_layer_indices(scene.cloud)
+    if cloud_layers:
+        n = h * w
+        cam = scene.camera.pos
+        origin = Vec3(torch.full((n,), float(cam[0]), device=device),
+                      torch.full((n,), max(float(cam[1]), 0.1), device=device),
+                      torch.full((n,), float(cam[2]), device=device))
+        sun_v = Vec3(*(f32(c) for c in sun_dir))
+        (cr, cg, cb), ct = cloud_march(
+            pack_clouds(scene.cloud), origin, d, sun_v, sun_disc, tuple(ch),
+            steps=int(min(max(scene.cloud.steps, 16), 96)), layers=cloud_layers)
+        ch = [cr + ch[0] * ct, cg + ch[1] * ct, cb + ch[2] * ct]
+    return torch.stack(ch, dim=-1).reshape(h, w, 3)
+
+
 def pack_sky(scene: Scene, device) -> DeviceSky:
     """Atmosphere LUTs + environment and aerial bakes, in PyTorch on
-    ``device`` (DEFAULT mode); CONSTANT_COLOR packs an empty map."""
+    ``device``. DEFAULT bakes the atmosphere at twice the image width;
+    HDRI bakes it at ``sky.hdri_dim`` with moon, stars and clouds folded in
+    (or takes ``scene.sky_hdri``, a user's lat-long image, verbatim, its
+    lighting all in the map); CONSTANT_COLOR packs an empty map."""
     from ..ops.atmosphere import (
         atmo_params_from_sky, bake_aerial_rows, bake_sky_envmap,
         build_multiscatter_lut, build_transmittance_lut,
@@ -753,7 +848,12 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
     mode = int(sky.mode)
     sun_dir = sun_direction(sky.azimuth, sky.altitude)
     is_constant = mode == 2
-    w = max(128, min(1024, 2 * scene.settings.width))
+    is_hdri = mode == 1
+    user_env = getattr(scene, "sky_hdri", None)
+    if is_hdri:
+        w = max(256, min(2048, int(sky.hdri_dim)))
+    else:
+        w = max(128, min(1024, 2 * scene.settings.width))
     env_res = (w // 2, w)
 
     def f32(v):
@@ -762,6 +862,12 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
     aerial = torch.zeros((1, 128), dtype=torch.float32, device=device)
     if is_constant:
         env = np.zeros((4, 8, 3), np.float32)
+        sun_disc = f32(np.zeros(3))
+    elif is_hdri and user_env is not None:
+        env = np.asarray(user_env, np.float32)
+        if env.ndim != 3 or env.shape[-1] < 3:
+            raise ValueError("sky_hdri must be a [H, W, >=3] lat-long image")
+        env = np.ascontiguousarray(env[..., :3])
         sun_disc = f32(np.zeros(3))
     else:
         p = atmo_params_from_sky(sky, device)
@@ -776,8 +882,10 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
             steps=int(min(max(sky.steps, 8), 64)))
         sun_t = sample_transmittance_lut(t_lut, h_obs, sun_dir_t[1])
         sun_disc = sun_t * f32(SUN_RADIANCE * sky.sun_strength)
+        if is_hdri:
+            env_t = _bake_hdri_extras(scene, env_t, sun_dir, sun_disc)
         env = env_t.cpu().numpy()
-        if getattr(scene.settings, "aerial_perspective", True):
+        if not is_hdri and getattr(scene.settings, "aerial_perspective", True):
             aerial = bake_aerial_rows(p, t_lut, ms_lut, h_obs, sun_dir_t, sun_irr)
 
     alias_rows, cell_pdf, ch, cw, nee_total = _build_env_nee(env, is_constant)
@@ -805,10 +913,8 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
 
 def check_scene_supported(scene: Scene) -> None:
     """Raise NotImplementedError for scene features the port lacks."""
-    if scene.ocean.active or scene.particles.active:
-        raise NotImplementedError("the ocean and particles are not ported yet")
-    if int(scene.sky.mode) not in (0, 2):
-        raise NotImplementedError("only DEFAULT and CONSTANT_COLOR skies are ported")
+    if scene.particles.active:
+        raise NotImplementedError("particles are not ported yet")
 
 
 def pack_scene(scene: Scene, device=None) -> DeviceScene:
@@ -825,6 +931,8 @@ def pack_scene(scene: Scene, device=None) -> DeviceScene:
         sky=pack_sky(scene, device),
         lights=lights_to_device(lights, device),
         fog=pack_fog(scene.fog),
+        water=pack_water(scene.ocean),
+        clouds=pack_clouds(scene.cloud),
         textures=pack_textures(scene.textures, device),
         shade_hot=_t(pack_shade_rows(hg, mats, lights), device),
         shade_aux=_t(pack_shade_aux(hg, mats, page_resolutions(scene.textures)),
@@ -928,6 +1036,21 @@ def from_jax_arrays(tree: dict, device):
                     scatter_albedo=float(fo["scatter_albedo"]),
                     height=float(fo["height"]), max_dist=float(fo["max_dist"]),
                     g=float(fo["g"]))
+    wa = s["water"]
+    water = DeviceWater(
+        active=bool(wa["active"]),
+        absorb=tuple(float(np.float32(a)) for a in np.asarray(wa["absorb"])),
+        **{k: float(np.float32(wa[k])) for k in (
+            "scatter", "mol_weight", "height", "amplitude", "frequency", "ior",
+            "caustics_scale")})
+    cl = s["clouds"]
+    clouds = DeviceClouds(
+        active=bool(cl["active"]),
+        **{k: tuple(float(np.float32(v)) for v in np.asarray(cl[k]))
+           for k in ("height_min", "height_max", "coverage", "coverage_min",
+                     "offset")},
+        **{k: float(np.float32(cl[k])) for k in (
+            "density", "shape_scale", "detail_scale", "weather_scale", "seed")})
     tx = s["textures"]
     textures = DeviceTextures(rows=f32(tx["rows"]),
                               page_table=_t(np.asarray(tx["page_table"], np.int32),
@@ -935,7 +1058,7 @@ def from_jax_arrays(tree: dict, device):
                               num_pages=int(tx["num_pages"]))
     scene = DeviceScene(
         geo=geo, materials=mats, sky=sky, lights=lights, fog=fog,
-        textures=textures,
+        water=water, clouds=clouds, textures=textures,
         shade_hot=_t(unpack_reference_shade_rows(
             np.asarray(s["shade_hot"]), p), device),
         shade_aux=_t(unpack_reference_shade_rows(

@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.camera import pack_camera
+from ..ops.clouds import active_layer_indices
 from ..ops.post import (
     apply_bloom,
     apply_color_correction,
@@ -141,22 +142,9 @@ def unported_features(scene: Scene) -> list[str]:
     """The reference's RenderConfig switches this scene would turn on that
     the port lacks (names as in the reference)."""
     s = scene.settings
-    mode = int(scene.sky.mode)
-    cloud_layers = (tuple(i for i, l in enumerate(
-        (scene.cloud.low, scene.cloud.mid, scene.cloud.top)) if l.active)
-        if scene.cloud.active else ())
-    ocean = scene.ocean
     flags = {
-        "use_clouds": bool(cloud_layers and mode != 1),
         "use_physical_camera": bool(scene.camera.use_physical_camera),
-        "env_nee": bool(getattr(s, "ambient_nee", True) and mode == 1),
         "spectral": bool(getattr(s, "spectral_rendering", False)),
-        "ocean_caustics": bool(ocean.active
-                               and getattr(ocean, "caustics_active", False)
-                               and mode != 2),
-        "analytic_ocean": bool(ocean.active
-                               and not getattr(ocean, "tessellated", False)),
-        "water_scatter": bool(ocean.active),
         "use_particles": bool(scene.particles.active
                               and int(scene.particles.count) > 0),
         "sort_wavefront": bool(getattr(s, "wavefront_sorting", False)),
@@ -213,6 +201,8 @@ class Renderer:
         n_chunks = max(-(-n_pixels // max(self.chunk, 1)), 1)
         chunk = _round_up(-(-n_pixels // n_chunks), 256)
         mode = int(self.scene.sky.mode)
+        ocean = self.scene.ocean
+        cloud_layers = active_layer_indices(self.scene.cloud)
 
         self.device_scene = pack_scene(self.scene, self.device)
         lights = self.device_scene.lights
@@ -233,6 +223,24 @@ class Renderer:
             blue_noise=bool(getattr(s, "blue_noise", True)),
             aerial=bool(getattr(s, "aerial_perspective", True) and mode == 0),
             sun_ris=bool(getattr(s, "sun_ris", True) and mode != 2),
+            # an HDRI map holds the clouds: no march per sample there
+            use_clouds=bool(cloud_layers and mode != 1),
+            cloud_steps=min(max(int(self.scene.cloud.steps) // 2, 8), 64),
+            cloud_layers=cloud_layers,
+            # env NEE for HDRI skies only (the DEFAULT atmosphere is smooth
+            # without its disc; a constant sky is uniform)
+            env_nee=bool(getattr(s, "ambient_nee", True) and mode == 1),
+            # caustics: a quarter of the entity's RIS count (each candidate
+            # pays five FBM evaluations)
+            ocean_caustics=bool(ocean.active
+                                and getattr(ocean, "caustics_active", False)
+                                and mode != 2),
+            caustics_k=min(max(int(getattr(
+                ocean, "caustics_ris_sample_count", 32)) // 4, 2), 32),
+            ocean_mat_id=len(self.scene.materials) if ocean.active else -1,
+            analytic_ocean=bool(ocean.active
+                                and not getattr(ocean, "tessellated", False)),
+            water_scatter=bool(ocean.active),
         )
         self.device_camera = pack_camera(self.scene.camera, self.device)
         self._ss = ss

@@ -16,13 +16,26 @@ bridges of 1..bridge_vertices scattering events, adds aerial perspective on
 segments that end on geometry or in fog and evaluates the sky once after the
 loop for the recorded misses.
 
+Sky and sea: the analytic ocean's heightfield march beside the closest
+walk (the nearer surface wins; ocean lanes take the water material and the
+surface normal), water collisions composed with fog by min-event and
+scattered by the water phase, Jerlov absorption on every segment, cloud
+shadows on the sun segment, environment NEE from the HDRI map's cell
+importance (MIS-paired with BSDF rays that escape), sun caustics through the
+wavy surface for underwater vertices (two more shadow segments; the BSDF
+path's disc hit after an upward ocean refraction is left to them), the
+surface's sign-change test on every shadow segment, and the cloud march on
+the miss side. The batched shadow walk takes the reference's segments in its
+order: sun, light, env, caustic x→P, caustic P→sun.
+
 The branches run in the reference's order, so that every random stream is
 drawn at the same point. Branches of the reference that the port does not
-have (water, clouds, spectral, the physical camera, env NEE, particles, the
-analytic ocean, wavefront sorting, debug shading) are refused by the
-Renderer rather than stubbed. Without fog, cutouts or textures the
-reference's terms for them are exact identities (no collisions,
-transmittance 1), so the port skips them and changes no value.
+have (spectral, the physical camera, particles, wavefront sorting, debug
+shading) are refused by the Renderer rather than stubbed. Without fog,
+water, clouds, cutouts or textures the reference's terms for them are exact
+identities (no collisions, transmittance 1), so the port skips them and
+changes no value. The marches (ocean, clouds, caustic connection) run on
+the lanes that use their result only.
 """
 
 from __future__ import annotations
@@ -47,24 +60,34 @@ from ..ops.material import (
     medium_top_ior,
 )
 from ..ops.bridges import sample_bridge
+from ..ops.caustics import sample_caustic_connection
+from ..ops.clouds import cloud_march, cloud_sun_transmittance
+from ..ops.ocean import ocean_crosses, ocean_intersect, ocean_normal
+from ..ops.procedural import OCEAN_INSTANCE_ID
 from ..ops.random import RandomTarget, blue_base, random_1d
 from ..ops.rowops import gather_packed_planar, gather_planar
 from ..ops.sky import (
     SUN_COS_RADIUS,
     SUN_SOLID_ANGLE,
     aerial_fetch,
+    env_pdf,
+    sample_env_direction,
     sky_radiance,
     sun_dir_vec,
     sun_solid_angle_radiance,
 )
 from ..ops.textures import sample_atlas
-from ..ops.traverse import trace_closest, trace_occluded, trace_transmission
+from ..ops.traverse import Hit, trace_closest, trace_occluded, trace_transmission
 from ..ops.vec import Vec3, dot, gather as vgather, normalize, vwhere
 from ..ops.volume import (
     fog_transmittance,
     hg_phase,
+    ocean_phase,
     sample_fog_collision,
     sample_hg_direction,
+    sample_ocean_phase_direction,
+    sample_water_collision,
+    water_transmittance,
 )
 from ..ops.wavefront_utils import sample_sun_direction
 from .device_scene import (
@@ -121,6 +144,22 @@ class RenderConfig(NamedTuple):
     blue_noise: bool = True
     aerial: bool = False
     sun_ris: bool = False
+    # the cloud march on the miss side and cloud shadows (not in HDRI mode,
+    # whose map holds the clouds); active layer indices, low/mid/top
+    use_clouds: bool = False
+    cloud_steps: int = 32
+    cloud_layers: tuple = (0,)
+    # environment NEE from the HDRI map's cell importance, MIS-paired with
+    # BSDF rays that escape to the sky
+    env_nee: bool = False
+    # sun caustics through the wavy surface for underwater vertices
+    ocean_caustics: bool = False
+    caustics_k: int = 8
+    ocean_mat_id: int = -1  # the procedural water material
+    # the analytic ocean surface (the tessellated one is geometry)
+    analytic_ocean: bool = False
+    # water in-scattering, on with the ocean
+    water_scatter: bool = False
 
 
 class GBufferMeta(NamedTuple):
@@ -229,12 +268,27 @@ def _normal_mapped(ns: Vec3, u0: Vec3, v0: Vec3, e1v: Vec3, e2v: Vec3,
     return vwhere((normal_tex >= 0) & ok, mapped, ns)
 
 
+def _lane_ids(sample_id, ix):
+    """The sample ids of lanes ``ix`` (one id for all lanes stays one)."""
+    return sample_id[ix] if sample_id.dim() else sample_id
+
+
+def _add(rad, thr, f, le, tw, w):
+    """rad + thr f Le (tw) w, in the reference's product order; ``tw`` (a
+    water transmittance) is None where the reference's factor is 1."""
+    x = thr * f * le
+    if tw is not None:
+        x = x * tw
+    return rad + x * w
+
+
 def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                   pixel_x: torch.Tensor, pixel_y: torch.Tensor, sample_id,
                   with_gbuffer: bool = True):
     """Trace one full sample for the pixel wavefront → (radiance [N, 3],
     gbuffer GBufferMeta, rays_traced 0-d f32: closest rays per depth + sun,
-    light and bridge shadow rays, the accounting of ``bench.py``).
+    light, env, caustic (two per connection) and bridge shadow rays, the
+    accounting of ``bench.py``).
 
     ``sample_id`` is one id for every lane (an int or a 0-d tensor) or an
     ``[N]`` tensor of per-lane ids (adaptive stages); ids are u32 words.
@@ -245,6 +299,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     lights = scene.lights
     sky = scene.sky
     fog = scene.fog
+    water = scene.water
     dev = pixel_x.device
     n = pixel_x.shape[0]
     pixel_id = (pixel_y.to(torch.int64) * config.width
@@ -273,10 +328,17 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     miss_dir = Vec3(zeros, zeros, zeros)
     miss_thr_r, miss_thr_g, miss_thr_b = zeros, zeros, zeros
     miss_sun_weight = zeros
+    # the bounce pdf at the miss for env-NEE MIS (-1 = full weight),
+    # resolved once after the loop
+    miss_env_weight = -ones
     ever_missed = false
     prev_sun_nee = false
     prev_sun2 = false
     prev_light_nee = false
+    prev_env_nee = false
+    # a bounce refracted up through the ocean surface: its sun-disc hit
+    # belongs to the caustic strategy
+    ocean_exit = false
     gbuffer = None
 
     sun_radiance = sun_solid_angle_radiance(sky)  # f32 [3]
@@ -288,6 +350,10 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     # fog: collisions only where an active fog has density; otherwise every
     # fog term of the reference is an identity and is skipped
     fog_on = fog.on
+    water_on = water.active  # Jerlov absorption (identity without water)
+    water_scatter = config.water_scatter
+    vol_on = fog_on or water_scatter  # volume collisions possible
+    vol_water = None
     use_bridges = config.use_bridges and fog_on
     # once a path scatters in the fog, the bridges of that first vertex own
     # all geometry-light transport (orders 1..M): later vertices run no
@@ -301,16 +367,47 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         spread = float(np.float32(2.0) * np.float32(float(cam.fov))
                        / np.float32(config.height))
 
+    def vol_phase(cos_t):
+        """The phase at a volume vertex: the water's mixture on water
+        collisions, the fog's HG elsewhere."""
+        p = hg_phase(cos_t, fog.g)
+        if water_scatter:
+            p = torch.where(vol_water, ocean_phase(cos_t, water), p)
+        return p
+
     for depth in range(config.max_depth):
         rays_traced = rays_traced + active.to(torch.float32).sum()
         hit = trace_closest(geo.bvh, origin, direction, active=active)
+
+        # ---- the analytic ocean: the heightfield march up to the walk's
+        # hit, the nearer surface wins ----
+        if config.analytic_ocean:
+            ocean_lane, oc_t = ocean_intersect(
+                water, origin, direction, torch.where(hit.valid, hit.t, 1e7),
+                active)
+            hit = Hit(t=torch.where(ocean_lane, oc_t, hit.t),
+                      slot=torch.where(ocean_lane, 0, hit.slot),
+                      u=torch.where(ocean_lane, 0.0, hit.u),
+                      v=torch.where(ocean_lane, 0.0, hit.v))
         hit_valid = hit.valid
 
-        # ---- fog collisions (analog tracking) ----
+        # ---- volume collisions (analog tracking): fog, and water composed
+        # with it by the nearer event ----
+        t_media = torch.where(hit_valid, hit.t, 1e7)
         if fog_on:
-            t_media = torch.where(hit_valid, hit.t, 1e7)
             collided, t_col = sample_fog_collision(
                 fog, origin, direction, t_media, pixel_id, sample_id, depth)
+        elif vol_on:
+            collided, t_col = false, t_media
+        if water_scatter:
+            coll_w, t_col_w = sample_water_collision(
+                water, origin, direction, t_media, pixel_id, sample_id, depth,
+                bn=bn)
+            water_wins = coll_w & (~collided | (t_col_w < t_col))
+            t_col = torch.where(water_wins, t_col_w, t_col)
+            collided = collided | coll_w
+            vol_water = active & water_wins
+        if vol_on:
             vol_lane = active & collided
             missed = active & ~hit_valid & ~collided
             hit_lane = active & hit_valid & ~collided
@@ -318,11 +415,16 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         else:
             missed = active & ~hit_valid
             hit_lane = active & hit_valid
-            seg_len = torch.where(hit_valid, hit.t, 1e7)
+            seg_len = t_media
+
+        # ---- Jerlov absorption along the segment ----
+        if water_on:
+            twr, twg, twb = water_transmittance(water, origin, direction, seg_len)
+            thr_r, thr_g, thr_b = thr_r * twr, thr_g * twg, thr_b * twb
 
         # ---- aerial perspective on segments that end on geometry or fog ----
         if config.aerial:
-            ends_here = active & (hit_valid | collided) if fog_on else hit_lane
+            ends_here = active & (hit_valid | collided) if vol_on else hit_lane
             (atr_r, atr_g, atr_b), (ain_r, ain_g, ain_b) = aerial_fetch(
                 sky, direction, seg_len * 1e-3)  # world m → km
             on = ends_here.to(torch.float32)
@@ -337,13 +439,18 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         den_sun = (_INV_SUN_SOLID_ANGLE
                    + prev_pdf * (1.0 + prev_sun2.to(torch.float32)))
         w_sun = torch.where(prev_delta | ~prev_sun_nee, 1.0, prev_pdf / den_sun)
+        if config.ocean_caustics:
+            w_sun = torch.where(ocean_exit, 0.0, w_sun)
         miss_dir = vwhere(missed, direction, miss_dir)
         miss_thr_r = torch.where(missed, thr_r, miss_thr_r)
         miss_thr_g = torch.where(missed, thr_g, miss_thr_g)
         miss_thr_b = torch.where(missed, thr_b, miss_thr_b)
         miss_sun_weight = torch.where(missed, w_sun, miss_sun_weight)
+        if config.env_nee:
+            pdfb_env = torch.where(prev_delta | ~prev_env_nee, -1.0, prev_pdf)
+            miss_env_weight = torch.where(missed, pdfb_env, miss_env_weight)
         ever_missed = ever_missed | missed
-        active = hit_lane | vol_lane if fog_on else hit_lane
+        active = hit_lane | vol_lane if vol_on else hit_lane
 
         # ---- hit context: one shade-row gather (big tables) or per-field
         # gathers (small tables); with textures one aux row too ----
@@ -352,12 +459,14 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         hit_pos = Vec3(origin.x + direction.x * t_safe,
                        origin.y + direction.y * t_safe,
                        origin.z + direction.z * t_safe)
-        if fog_on:
+        if vol_on:
             vol_pos = Vec3(origin.x + direction.x * t_col,
                            origin.y + direction.y * t_col,
                            origin.z + direction.z * t_col)
         if use_rows:
             srow = gather_packed_planar(scene.shade_hot, slot, SHP_COLS)
+            ids = srow[SHP_IDS]
+            mat_id = ids & 0xFFFF
             mat_flags = srow[SHP_FLAGS]
             ns, ng, ng_raw = _shading_normal_packed(srow, direction, hit.u, hit.v)
             alb_r, alb_g = unpack_f16_pair(srow[SHP_ALB_RG])
@@ -395,6 +504,42 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             if use_tex:
                 uvs = (vgather(geo.uv_u, sl), vgather(geo.uv_v, sl))
                 tex_id = mats.albedo_tex[mat_id]
+        if config.analytic_ocean:
+            # ocean lanes carry slot 0: every slot-derived quantity becomes
+            # the analytic surface's and the water material's
+            omid = config.ocean_mat_id
+            oix = torch.nonzero(ocean_lane).flatten()
+            o_n = Vec3(zeros.clone(), ones.clone(), zeros.clone())
+            on_part = ocean_normal(water, hit_pos.x[oix], hit_pos.z[oix])
+            for c_full, c_part in zip(o_n, on_part):
+                c_full[oix] = c_part
+            o_flip = torch.where(dot(o_n, direction) > 0.0, -1.0, 1.0)
+            o_nf = Vec3(o_n.x * o_flip, o_n.y * o_flip, o_n.z * o_flip)
+            mat_id = torch.where(ocean_lane, omid, mat_id)
+            mat_flags = torch.where(ocean_lane, MAT_FLAG_TRANSLUCENT, mat_flags)
+            ns = vwhere(ocean_lane, o_nf, ns)
+            ng = vwhere(ocean_lane, o_nf, ng)
+            ng_raw = vwhere(ocean_lane, o_n, ng_raw)
+            lane_mat = LaneMaterial(
+                albedo_r=torch.where(ocean_lane, mats.albedo_r[omid],
+                                     lane_mat.albedo_r),
+                albedo_g=torch.where(ocean_lane, mats.albedo_g[omid],
+                                     lane_mat.albedo_g),
+                albedo_b=torch.where(ocean_lane, mats.albedo_b[omid],
+                                     lane_mat.albedo_b),
+                roughness=torch.where(ocean_lane, mats.roughness[omid],
+                                      lane_mat.roughness),
+                metallic=torch.where(ocean_lane, 0.0, lane_mat.metallic),
+                ior=torch.where(ocean_lane, water.ior, lane_mat.ior),
+                translucent=lane_mat.translucent | ocean_lane,
+                opacity=torch.where(ocean_lane, 1.0, lane_mat.opacity),
+                thin_walled=lane_mat.thin_walled & ~ocean_lane,
+            )
+            em_r = torch.where(ocean_lane, 0.0, em_r)
+            em_g = torch.where(ocean_lane, 0.0, em_g)
+            em_b = torch.where(ocean_lane, 0.0, em_b)
+            if use_tex:
+                tex_id = torch.where(ocean_lane, -1, tex_id)
         if use_tex:
             u0, v0 = uvs
             w_b = 1.0 - hit.u - hit.v
@@ -423,6 +568,11 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     metal_tex = mats.metallic_tex[mat_id]
                     normal_tex = mats.normal_tex[mat_id]
                     lum_tex = mats.luminance_tex[mat_id]
+                if config.analytic_ocean:  # the ocean surface is untextured
+                    rough_tex = torch.where(ocean_lane, -1, rough_tex)
+                    metal_tex = torch.where(ocean_lane, -1, metal_tex)
+                    normal_tex = torch.where(ocean_lane, -1, normal_tex)
+                    lum_tex = torch.where(ocean_lane, -1, lum_tex)
                 rr_, _, _, _ = sample_atlas(scene.textures, rough_tex, uu, vv,
                                             lod=lod, trilinear=False)
                 mm_, _, _, _ = sample_atlas(scene.textures, metal_tex, uu, vv,
@@ -452,14 +602,15 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         wo = -direction
         if depth == 0 and with_gbuffer:
             if use_rows:  # mat_id u16 | (instance_id + 1) u16
-                ids = srow[SHP_IDS]
-                mat_id0, inst0 = ids & 0xFFFF, ((ids >> 16) & 0xFFFF) - 1
+                inst0 = ((ids >> 16) & 0xFFFF) - 1
             else:
-                mat_id0, inst0 = mat_id, geo.instance_id[sl]
+                inst0 = geo.instance_id[sl]
+            if config.analytic_ocean:
+                inst0 = torch.where(ocean_lane, OCEAN_INSTANCE_ID, inst0)
             gbuffer = GBufferMeta(
                 depth=torch.where(hit_lane, hit.t, MISS_DIST),
                 instance_id=torch.where(hit_lane, inst0.to(torch.int32), -1),
-                material_id=torch.where(hit_lane, mat_id0.to(torch.int32), -1),
+                material_id=torch.where(hit_lane, mat_id.to(torch.int32), -1),
                 rel_hit_pos=torch.where(
                     hit_lane[:, None],
                     torch.stack([hit_pos.x - cam.pos[0], hit_pos.y - cam.pos[1],
@@ -473,8 +624,10 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                             depth, bn=bn)
         pass_thru = hit_lane & (r_alpha >= lane_mat.opacity)
 
-        if fog_on:  # the scattering albedo at a fog collision
+        if vol_on:  # the scattering albedo at a collision (water's is 1)
             vol_alb = torch.where(vol_lane, fog.scatter_albedo, 1.0)
+            if water_scatter:
+                vol_alb = torch.where(vol_water, 1.0, vol_alb)
             thr_r, thr_g, thr_b = thr_r * vol_alb, thr_g * vol_alb, thr_b * vol_alb
 
         # ---- emission on hit (one-sided), MIS vs light NEE ----
@@ -507,7 +660,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                              hit_pos.y + ng.y * _RAY_EPS,
                              hit_pos.z + ng.z * _RAY_EPS)
         nee_lane = hit_lane & ~lane_mat.translucent & ~pass_thru
-        if fog_on:
+        if vol_on:
             shadow_origin = vwhere(vol_lane, vol_pos, shadow_origin)
             nee_lane = nee_lane | vol_lane
         frame = make_frame(lane_mat, ns, wo, scene.ggx_quad)
@@ -518,8 +671,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                                          bn=bn)
         (fs_r, fs_g, fs_b), pdf_b_sun = frame_eval(
             lane_mat, frame, lane_mat.roughness, sun_dir_s)
-        if fog_on:  # fog vertices scatter by the HG phase
-            phase_sun = hg_phase(dot(direction, sun_dir_s), fog.g)
+        if vol_on:  # volume vertices scatter by the phase
+            phase_sun = vol_phase(dot(direction, sun_dir_s))
             fs_r = torch.where(vol_lane, phase_sun, fs_r)
             fs_g = torch.where(vol_lane, phase_sun, fs_g)
             fs_b = torch.where(vol_lane, phase_sun, fs_b)
@@ -533,7 +686,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             wi_b2, _w2, pdf_s2, is_delta2, trans2 = material_sample(
                 lane_mat, frame, ns, wo, pixel_id, sample_id, depth + 64, bn=bn)
             sun2_on = (sun_nee_on & ~lane_mat.translucent & ~is_delta2 & ~trans2)
-            if fog_on:
+            if vol_on:
                 sun2_on = sun2_on & ~vol_lane
             cand2_ok = (sun2_on & (dot(wi_b2, sun_v) >= SUN_COS_RADIUS)
                         & (dot(wi_b2, ns) > 0.0))
@@ -569,8 +722,19 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         sun_ris_w = torch.where(
             sun_candidate, wsum_sun / torch.clamp(sel_phat_sun, min=1e-20), 0.0)
         rays_traced = rays_traced + sun_candidate.to(torch.float32).sum()
-        if fog_on:
-            t_fog_sun = fog_transmittance(fog, shadow_origin, sun_dir_w, 1e7)
+        t_sun = (fog_transmittance(fog, shadow_origin, sun_dir_w, 1e7)
+                 if fog_on else None)
+        if config.use_clouds:
+            # cloud shadows, marched for the sun candidates only
+            cix = torch.nonzero(sun_candidate).flatten()
+            t_cloud = ones.clone()
+            t_cloud[cix] = cloud_sun_transmittance(
+                scene.clouds, vgather(shadow_origin, cix), sun_v,
+                layers=config.cloud_layers)
+            t_sun = t_cloud if t_sun is None else t_sun * t_cloud
+        tws = (water_transmittance(water, shadow_origin, sun_dir_w, 1e7,
+                                   with_scatter=water_scatter)
+               if water_on else (None, None, None))
 
         # ---- NEE 2: emissive triangles, RIS over K candidates ----
         k_ris = max(int(config.ris_candidates), 1)
@@ -613,7 +777,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             cos_s = dot(l_dir, ns)
             cos_s_ok = cos_s > 0.0
             cos_term = torch.clamp(cos_s, min=0.0)
-            if fog_on:
+            if vol_on:
                 cos_s_ok = vol_lane | cos_s_ok
                 cos_term = torch.where(vol_lane, 1.0, cos_term)
             cand_ok = (nee_lane & l_valid & (cos_l > 1e-6) & cos_s_ok
@@ -647,8 +811,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             wsum / (k_ris * torch.clamp(sel_phat, min=1e-20)), 0.0)
         (fl_r, fl_g, fl_b), pdf_b_l = frame_eval(
             lane_mat, frame, lane_mat.roughness, sel_dir)
-        if fog_on:
-            phase_l = hg_phase(dot(direction, sel_dir), fog.g)
+        if vol_on:
+            phase_l = vol_phase(dot(direction, sel_dir))
             fl_r = torch.where(vol_lane, phase_l, fl_r)
             fl_g = torch.where(vol_lane, phase_l, fl_g)
             fl_b = torch.where(vol_lane, phase_l, fl_b)
@@ -682,38 +846,151 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             le_b = torch.where(wlum >= 0, le_b * wlb, le_b)
         rays_traced = rays_traced + light_candidate.to(torch.float32).sum()
 
+        # ---- NEE 3: the environment, one alias-cell draw per vertex; Le is
+        # the sky without the disc (the disc pairs with the sun strategy) ----
+        if config.env_nee:
+            env_dir, pdf_env = sample_env_direction(sky, pixel_id, sample_id,
+                                                    depth, bn=bn)
+            (fe_r, fe_g, fe_b), pdf_b_env = frame_eval(
+                lane_mat, frame, lane_mat.roughness, env_dir)
+            if vol_on:
+                phase_env = vol_phase(dot(direction, env_dir))
+                fe_r = torch.where(vol_lane, phase_env, fe_r)
+                fe_g = torch.where(vol_lane, phase_env, fe_g)
+                fe_b = torch.where(vol_lane, phase_env, fe_b)
+                pdf_b_env = torch.where(vol_lane, phase_env, pdf_b_env)
+                side_ok = vol_lane | (dot(env_dir, ns) > 0.0)
+            else:
+                side_ok = dot(env_dir, ns) > 0.0
+            env_candidate = (nee_lane & (pdf_env > 1e-12)
+                             & (sky.env_nee_total > 0.0) & side_ok)
+            rays_traced = rays_traced + env_candidate.to(torch.float32).sum()
+            env_le = sky_radiance(sky, env_dir, include_sun=False)
+            t_fog_env = (fog_transmittance(fog, shadow_origin, env_dir, 1e7)
+                         if fog_on else None)
+            twe = (water_transmittance(water, shadow_origin, env_dir, 1e7,
+                                       with_scatter=water_scatter)
+                   if water_on else (None, None, None))
+            w_mis_env = mis_balance(pdf_env, pdf_b_env)
+
+        # ---- NEE 4: sun caustics for underwater vertices, connected on
+        # the lanes that can use them ----
+        if config.ocean_caustics:
+            uw_lane = nee_lane & (shadow_origin.y < water.height) & sun_nee_on
+            if not water.active:
+                uw_lane = false
+            uix = torch.nonzero(uw_lane).flatten()
+            cau_p = Vec3(*(c.clone() for c in shadow_origin))
+            cau_u = Vec3(zeros.clone(), ones.clone(), zeros.clone())
+            cau_dist, cau_weight = ones.clone(), zeros.clone()
+            cau_valid = false.clone()
+            p_, u_, d_, w_, v_ = sample_caustic_connection(
+                water, sun_v, vgather(shadow_origin, uix), pixel_id[uix],
+                _lane_ids(sample_id, uix), depth, config.caustics_k)
+            for full, part in zip((*cau_p, *cau_u, cau_dist, cau_weight,
+                                   cau_valid), (*p_, *u_, d_, w_, v_)):
+                full[uix] = part
+            cau_candidate = uw_lane & cau_valid
+            rays_traced = rays_traced + 2.0 * cau_candidate.to(torch.float32).sum()
+
         # ---- all shadow rays in one batched any-hit walk over the opaque
-        # geometry, then the cutouts' transparency ----
-        shadow_o = Vec3(*(torch.cat([c, c]) for c in shadow_origin))
-        shadow_d = Vec3(*(torch.cat([a, b]) for a, b in zip(sun_dir_w, l_dir)))
-        shadow_t = torch.cat([torch.full((n,), MISS_DIST, device=dev),
-                              dist - 2.0 * _RAY_EPS])
-        shadow_act = torch.cat([sun_candidate, light_candidate])
+        # geometry, in the reference's segment order (sun, light, env,
+        # caustic x→P, caustic P→sun); then the ocean surface and the
+        # cutouts' transparency ----
+        full_t = torch.full((n,), MISS_DIST, device=dev)
+        seg_o = [shadow_origin, shadow_origin]
+        seg_d = [sun_dir_w, l_dir]
+        seg_t = [full_t, dist - 2.0 * _RAY_EPS]
+        seg_a = [sun_candidate, light_candidate]
+        if config.env_nee:
+            seg_o.append(shadow_origin)
+            seg_d.append(env_dir)
+            seg_t.append(full_t)
+            seg_a.append(env_candidate)
+        if config.ocean_caustics:
+            i_cau = len(seg_o)
+            # x → P, shortened (P lies on the surface), and P → sun, off the
+            # interface
+            seg_o += [shadow_origin,
+                      Vec3(cau_p.x + sun_v.x * 0.02,
+                           cau_p.y + sun_v.y * 0.02 + 0.02,
+                           cau_p.z + sun_v.z * 0.02)]
+            seg_d += [cau_u, Vec3(*(c.expand(n) for c in sun_v))]
+            seg_t += [cau_dist * 0.95, full_t]
+            seg_a += [cau_candidate, cau_candidate]
+        shadow_o = Vec3(*(torch.cat([o[c] for o in seg_o]) for c in range(3)))
+        shadow_d = Vec3(*(torch.cat([d[c] for d in seg_d]) for c in range(3)))
+        shadow_t = torch.cat(seg_t)
+        shadow_act = torch.cat(seg_a)
         occ = trace_occluded(geo.bvh, shadow_o, shadow_d, shadow_t,
                              active=shadow_act)
+        if config.analytic_ocean:
+            # the surface occludes every class; the sign-change test keeps
+            # the caustic segments that end on it unblocked by it
+            occ = occ | ocean_crosses(water, shadow_o, shadow_d, shadow_t,
+                                      shadow_act & ~occ)
         sun_occluded, l_occluded = occ[:n], occ[n:2 * n]
+        if cutouts:  # the sun, light and env segments' transparency
+            n_tr = 3 * n if config.env_nee else 2 * n
+            trans = trace_transmission(
+                geo.bvh, Vec3(*(c[:n_tr] for c in shadow_o)),
+                Vec3(*(c[:n_tr] for c in shadow_d)), shadow_t[:n_tr],
+                active=(shadow_act & ~occ)[:n_tr])
         sun_w = sun_ris_w
-        if fog_on:
-            sun_w = sun_w * t_fog_sun
+        if t_sun is not None:
+            sun_w = sun_w * t_sun
         if cutouts:
-            trans = trace_transmission(geo.bvh, shadow_o, shadow_d, shadow_t,
-                                       active=shadow_act & ~occ)
             sun_w = sun_w * trans[:n]
         sun_w = torch.where(sun_candidate & ~sun_occluded, sun_w, 0.0)
-        rad_r = rad_r + thr_r * fs_r * sun_rad3[0] * sun_w
-        rad_g = rad_g + thr_g * fs_g * sun_rad3[1] * sun_w
-        rad_b = rad_b + thr_b * fs_b * sun_rad3[2] * sun_w
+        rad_r = _add(rad_r, thr_r, fs_r, sun_rad3[0], tws[0], sun_w)
+        rad_g = _add(rad_g, thr_g, fs_g, sun_rad3[1], tws[1], sun_w)
+        rad_b = _add(rad_b, thr_b, fs_b, sun_rad3[2], tws[2], sun_w)
         l_w = sel_w_mis
         if fog_on:
             l_w = l_w * fog_transmittance(fog, shadow_origin, l_dir, dist)
         l_w = l_w * ris_w
         if cutouts:
             l_w = l_w * trans[n:2 * n]
+        twl = (water_transmittance(water, shadow_origin, l_dir, dist,
+                                   with_scatter=water_scatter)
+               if water_on else (None, None, None))
         direct_lane = light_candidate & ~vol_lane if use_bridges else light_candidate
+        if use_bridges and water_scatter:
+            # bridges model fog chains; water vertices connect directly
+            direct_lane = direct_lane | (vol_water & light_candidate)
         l_w = torch.where(direct_lane & ~l_occluded, l_w, 0.0)
-        rad_r = rad_r + thr_r * fl_r * le_r * l_w
-        rad_g = rad_g + thr_g * fl_g * le_g * l_w
-        rad_b = rad_b + thr_b * fl_b * le_b * l_w
+        rad_r = _add(rad_r, thr_r, fl_r, le_r, twl[0], l_w)
+        rad_g = _add(rad_g, thr_g, fl_g, le_g, twl[1], l_w)
+        rad_b = _add(rad_b, thr_b, fl_b, le_b, twl[2], l_w)
+        if config.env_nee:
+            env_w = w_mis_env / torch.clamp(pdf_env, min=1e-12)
+            if t_fog_env is not None:
+                env_w = env_w * t_fog_env
+            if cutouts:
+                env_w = env_w * trans[2 * n:3 * n]
+            env_w = torch.where(env_candidate & ~occ[2 * n:3 * n], env_w, 0.0)
+            rad_r = _add(rad_r, thr_r, fe_r, env_le.x, twe[0], env_w)
+            rad_g = _add(rad_g, thr_g, fe_g, env_le.y, twe[1], env_w)
+            rad_b = _add(rad_b, thr_b, fe_b, env_le.z, twe[2], env_w)
+        if config.ocean_caustics:
+            cau_blocked = (occ[i_cau * n:(i_cau + 1) * n]
+                           | occ[(i_cau + 1) * n:(i_cau + 2) * n])
+            (fc_r, fc_g, fc_b), _pdf_c = frame_eval(
+                lane_mat, frame, lane_mat.roughness, cau_u)
+            if vol_on:
+                phase_c = vol_phase(dot(direction, cau_u))
+                fc_r = torch.where(vol_lane, phase_c, fc_r)
+                fc_g = torch.where(vol_lane, phase_c, fc_g)
+                fc_b = torch.where(vol_lane, phase_c, fc_b)
+            # x→P lies under water: absorption, and the scattering
+            # extinction under in-scattering (a shadow-class segment)
+            sig = np.float32(water.scatter if water_scatter else 0.0)
+            twc = tuple(torch.exp(-float(np.float32(a) + sig) * cau_dist)
+                        for a in water.absorb)
+            c_w = torch.where(cau_candidate & ~cau_blocked, cau_weight, 0.0)
+            rad_r = _add(rad_r, thr_r, fc_r, sun_rad3[0], twc[0], c_w)
+            rad_g = _add(rad_g, thr_g, fc_g, sun_rad3[1], twc[1], c_w)
+            rad_b = _add(rad_b, thr_b, fc_b, sun_rad3[2], twc[2], c_w)
 
         # ---- bridge volume NEE: fog vertices connect to the chosen light
         # through 1..bridge_vertices scattering events (M = 1 is the
@@ -729,14 +1006,18 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     fog.sigma_t, config.bridge_vertices, pixel_id, sample_id,
                     depth))
             b_lane = vol_lane & light_candidate
+            if water_scatter:
+                b_lane = b_lane & ~vol_water
             b_occ = false
             for i in range(config.bridge_vertices):
                 act_i = b_lane & (i < b_m) & ~b_occ
                 rays_traced = rays_traced + act_i.to(torch.float32).sum()
+                b_len = torch.clamp(b_lens[i] - 2.0 * _RAY_EPS, min=0.0)
                 b_occ = b_occ | trace_occluded(
-                    geo.bvh, b_starts[i], b_dirs[i],
-                    torch.clamp(b_lens[i] - 2.0 * _RAY_EPS, min=0.0),
-                    active=act_i)
+                    geo.bvh, b_starts[i], b_dirs[i], b_len, active=act_i)
+                if config.analytic_ocean:
+                    b_occ = b_occ | ocean_crosses(
+                        water, b_starts[i], b_dirs[i], b_len, act_i & ~b_occ)
             # with M >= 2 every order is the bridges' own (vol_scattered
             # stops the forward chain); M = 1 is MIS-paired as the direct
             # connection
@@ -763,11 +1044,15 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 torch.where(front_face, medium_push(medium, lane_mat.ior),
                             medium_pop(medium)),
                 medium)
-            if fog_on:
-                # fog lanes bounce by HG sampling: phase / pdf = 1
+            if vol_on:
+                # volume lanes bounce by phase sampling: phase / pdf = 1
                 wi_vol = sample_hg_direction(direction, fog.g, pixel_id,
                                              sample_id, depth, bn=bn)
-                pdf_vol = hg_phase(dot(direction, wi_vol), fog.g)
+                if water_scatter:
+                    wi_vol = vwhere(vol_water, sample_ocean_phase_direction(
+                        direction, water, pixel_id, sample_id, depth, bn=bn),
+                        wi_vol)
+                pdf_vol = vol_phase(dot(direction, wi_vol))
                 wi = vwhere(vol_lane, wi_vol, wi)
                 wr = torch.where(vol_lane, 1.0, wr)
                 wg = torch.where(vol_lane, 1.0, wg)
@@ -789,13 +1074,13 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                      hit_pos.z + direction.z * _RAY_EPS),
                 Vec3(hit_pos.x + ng.x * off, hit_pos.y + ng.y * off,
                      hit_pos.z + ng.z * off))
-            if fog_on:
+            if vol_on:
                 origin = vwhere(vol_lane, vol_pos, origin)
             direction = vwhere(active, wi, direction)
             prev_pdf = torch.where(active & ~pass_thru, pdf,
                                    torch.where(pass_thru, prev_pdf, 0.0))
             prev_delta = torch.where(active & ~pass_thru, is_delta, prev_delta)
-            refl_side = vol_lane | ~transmitted if fog_on else ~transmitted
+            refl_side = vol_lane | ~transmitted if vol_on else ~transmitted
             upd = active & ~pass_thru
             prev_sun_nee = torch.where(upd, sun_nee_on & refl_side,
                                        prev_sun_nee & pass_thru)
@@ -804,8 +1089,18 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             prev_light_nee = torch.where(
                 upd, nee_lane & (lights.num_lights > 0) & refl_side,
                 prev_light_nee & pass_thru)
-            if multi_bridge:  # sticky for the rest of the path
-                vol_scattered = vol_scattered | vol_lane
+            if config.env_nee:
+                env_on_lane = nee_lane & (sky.env_nee_total > 0.0) & refl_side
+                prev_env_nee = torch.where(upd, env_on_lane,
+                                           prev_env_nee & pass_thru)
+            if config.ocean_caustics:
+                is_ocean = mat_id == config.ocean_mat_id
+                ocean_exit = torch.where(
+                    upd, hit_lane & transmitted & is_ocean & ~front_face,
+                    ocean_exit & pass_thru)
+            if multi_bridge:  # sticky for the rest of the path (fog only)
+                vol_scattered = vol_scattered | (
+                    vol_lane & ~vol_water if water_scatter else vol_lane)
 
             wmax = torch.maximum(torch.abs(wr), torch.maximum(torch.abs(wg),
                                                               torch.abs(wb)))
@@ -826,9 +1121,28 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     in_sun_disc = dot(safe_dir, sun_v) >= SUN_COS_RADIUS
     disc_w = torch.where(in_sun_disc, miss_sun_weight, 0.0)
     sky_rgb = sky_radiance(sky, safe_dir, include_sun=False)
-    sky_r = sky_rgb.x + sun_radiance[0] * disc_w
-    sky_g = sky_rgb.y + sun_radiance[1] * disc_w
-    sky_b = sky_rgb.z + sun_radiance[2] * disc_w
+    sky_r, sky_g, sky_b = sky_rgb
+    if config.env_nee:
+        # the MIS weight against env NEE, one pdf lookup for all misses
+        env_w_m = torch.where(
+            miss_env_weight < 0.0, 1.0,
+            mis_balance(miss_env_weight, env_pdf(sky, safe_dir)))
+        sky_r, sky_g, sky_b = sky_r * env_w_m, sky_g * env_w_m, sky_b * env_w_m
+    sky_r = sky_r + sun_radiance[0] * disc_w
+    sky_g = sky_g + sun_radiance[1] * disc_w
+    sky_b = sky_b + sun_radiance[2] * disc_w
+    if config.use_clouds:
+        # the cloud march in front of the sky, for the lanes that missed
+        mix = torch.nonzero(ever_missed).flatten()
+        (cr_, cg_, cb_), ct_ = cloud_march(
+            scene.clouds, vgather(origin, mix), vgather(safe_dir, mix), sun_v,
+            sun_radiance, tuple(c[mix] for c in sky_rgb),
+            steps=config.cloud_steps, layers=config.cloud_layers)
+        cr, cg, cb, ct = zeros.clone(), zeros.clone(), zeros.clone(), ones.clone()
+        cr[mix], cg[mix], cb[mix], ct[mix] = cr_, cg_, cb_, ct_
+        sky_r = cr + sky_r * ct
+        sky_g = cg + sky_g * ct
+        sky_b = cb + sky_b * ct
     add = ever_missed.to(torch.float32)
     rad_r = rad_r + miss_thr_r * sky_r * add
     rad_g = rad_g + miss_thr_g * sky_g * add

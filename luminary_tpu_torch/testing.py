@@ -413,6 +413,45 @@ def fog_bridges_scene(width: int = 32, height: int = 32) -> Scene:
     return s
 
 
+def outdoor_scene(width: int = 1920, height: int = 1080, max_depth: int = 4,
+                  nx: int = 19, nz: int = 19, sky_mode: int = 0,
+                  clouds: bool = True, hdri_dim: int = 2048) -> Scene:
+    """The bench field (seed 7) at sea: the analytic ocean's surface at
+    y = 0.7 covers the ground and the centres of about a third of the
+    spheres (those of radius under 0.7), with water scattering and sun
+    caustics; the low and mid cloud layers (``clouds``); the DEFAULT sky
+    (``sky_mode`` 0: the cloud march on the miss side) or the HDRI sky
+    (1: baked at ``hdri_dim`` with the clouds in the map, env NEE)."""
+    scene = benchmark_scene(width, height, max_depth, nx, nz)
+    oc = scene.get_entity("ocean")
+    oc.active = True
+    oc.height = 0.7
+    oc.caustics_active = True
+    scene.set_entity("ocean", oc)
+    if clouds:
+        cl = scene.get_entity("cloud")
+        cl.active = True
+        cl.low.active = True
+        cl.mid.active = True
+        scene.set_entity("cloud", cl)
+    sky = scene.get_entity("sky")
+    sky.mode = SkyMode(sky_mode)
+    sky.hdri_dim = hdri_dim
+    scene.set_entity("sky", sky)
+    return scene
+
+
+def clouds_scene(width: int = 32, height: int = 32) -> Scene:
+    """The ``clouds_32`` golden scene: the sun plane under the low cloud
+    layer (the cloud march on the miss side, cloud shadows)."""
+    s = sun_plane_scene(width, height)
+    cl = s.get_entity("cloud")
+    cl.active = True
+    cl.low.active = True
+    s.set_entity("cloud", cl)
+    return s
+
+
 def write_obj_scene(scene: Scene, directory: str, name: str = "scene") -> str:
     """Write a scene's meshes and materials as one OBJ/MTL pair (emitters as
     ``Ke``, per-corner normals as ``vn``) and its settings, camera and sky as

@@ -43,6 +43,9 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.render.adaptive\n"
         "import luminary_tpu_torch.ops.textures, luminary_tpu_torch.ops.volume\n"
         "import luminary_tpu_torch.ops.bridges\n"
+        "import luminary_tpu_torch.ops.clouds, luminary_tpu_torch.ops.ocean\n"
+        "import luminary_tpu_torch.ops.caustics\n"
+        "import luminary_tpu_torch.ops.procedural\n"
         # python -m luminary_tpu_torch --help: runs __main__ and the CLI
         "import contextlib, io, runpy\n"
         "sys.argv = ['luminary_tpu_torch', '--help']\n"
@@ -146,14 +149,34 @@ def _caustics(s):
     s.set_entity("sky", sky)
 
 
+def _outdoor(*settings):
+    """The sun plane at 8x8 (open sky) with the ocean's surface 0.3 above
+    it where an ocean is set."""
+    def make():
+        s = sun_plane_scene(8, 8)
+        _entity("ocean", height=0.3)(s)
+        for f in settings:
+            f(s)
+        return s
+    return make
+
+
+def _user_hdri(s):
+    env = np.full((32, 64, 3), 0.05, np.float32)
+    env[6:12, 20:30] = (40.0, 30.0, 20.0)
+    s.set_sky_hdri(env)
+
+
+def _underwater_camera(s):
+    cam = s.get_entity("camera")
+    cam.pos = (cam.pos[0], 0.2, cam.pos[2])
+    s.set_entity("camera", cam)
+    _entity("ocean", active=True, height=1.5, caustics_active=True)(s)
+
+
 REFUSED = {
-    "use_clouds": _with(_clouds),
     "use_physical_camera": _with(_entity("camera", use_physical_camera=True)),
-    "env_nee": _with(_entity("sky", mode=SkyMode.HDRI)),
     "spectral": _with(_settings(spectral_rendering=True)),
-    "ocean_caustics": _with(_caustics),
-    "analytic_ocean": _with(_entity("ocean", active=True)),
-    "water_scatter": _with(_entity("ocean", active=True, tessellated=True)),
     "use_particles": _with(_entity("particles", active=True, count=16)),
     "sort_wavefront": _with(_settings(wavefront_sorting=True)),
     "shading_mode": _with(_settings(shading_mode=ShadingMode.ALBEDO)),
@@ -183,39 +206,63 @@ def test_scene_level_refusals(case):
     Renderer(s, device="cpu").render_samples(1)
 
 
+_HDRI = _entity("sky", mode=SkyMode.HDRI, hdri_dim=256)
+
 PORTED_CONTENT = {
     "use_textures": _with(_textures),
     "use_aux_textures": _with(_aux_texture),
     "use_bridges": _with(_entity("fog", active=True)),
     "cutout": _with(_cutout),
+    "clouds": _outdoor(_clouds, _entity("cloud", steps=16)),
+    "hdri_baked": _outdoor(_HDRI),
+    "hdri_user_map": _outdoor(_HDRI, _user_hdri),
+    "analytic_ocean": _outdoor(_entity("ocean", active=True)),
+    "tessellated_ocean": _outdoor(_entity("ocean", active=True,
+                                          tessellated=True)),
+    "caustics": _outdoor(_caustics, _entity("ocean", height=0.3)),
+    "underwater_camera": _outdoor(_underwater_camera),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PORTED_CONTENT))
 def test_scene_content_packs_and_renders(case):
-    """Textures, aux texture ids, fog and cutouts, once refused, pack and
+    """Textures, aux texture ids, fog, cutouts, cloud layers, the HDRI sky
+    (baked and from a user map, with env NEE), the analytic and tessellated
+    ocean, sun caustics and a camera under water, once refused, pack and
     render one finite sample on the CPU."""
     r = Renderer(PORTED_CONTENT[case](), device="cpu")
     r.render_samples(1)
     assert np.isfinite(r.get_radiance()).all()
+    c = r.config
     if case == "cutout":
         assert r.device_scene.geo.bvh.has_cutouts
     if case == "use_bridges":
-        assert r.config.use_bridges and r.device_scene.fog.on
+        assert c.use_bridges and r.device_scene.fog.on
+    if case == "clouds":
+        assert c.use_clouds and c.cloud_layers == (0,)
+    if case.startswith("hdri"):
+        assert c.env_nee and r.device_scene.sky.env_nee_total > 0.0
+        assert not c.aerial
+    if case == "hdri_user_map":
+        assert r.device_scene.sky.env_h == 32
+        assert float(r.device_scene.sky.sun_disc_radiance.abs().sum()) == 0.0
+    if case in ("analytic_ocean", "caustics", "underwater_camera"):
+        assert c.analytic_ocean and c.water_scatter
+        assert c.ocean_mat_id == len(r.scene.materials)
+    if case == "tessellated_ocean":
+        assert not c.analytic_ocean and c.water_scatter
+        assert r.device_scene.geo.material_id.shape[0] > 2 * 128 * 128
+    if case in ("caustics", "underwater_camera"):
+        assert c.ocean_caustics and c.caustics_k == 8
 
 
-@pytest.mark.parametrize("feature", ["hdri", "ocean", "particles"])
+@pytest.mark.parametrize("feature", ["particles"])
 def test_unported_scene_features_still_refused(feature):
-    """The HDRI sky, the ocean and particles stay refused by the pack."""
+    """Particles stay refused by the pack."""
     from luminary_tpu_torch.render.device_scene import check_scene_supported
 
     s = cornell_scene(8, 8)
-    if feature == "hdri":
-        _entity("sky", mode=SkyMode.HDRI)(s)
-    elif feature == "ocean":
-        _entity("ocean", active=True)(s)
-    else:
-        _entity("particles", active=True, count=16)(s)
+    _entity("particles", active=True, count=16)(s)
     with pytest.raises(NotImplementedError):
         check_scene_supported(s)
 
