@@ -87,7 +87,23 @@ Phases, one or more lines each; any failure exits non-zero:
    64 spp against its golden (the full-image figure reported; RMSE/scale <
    0.02 less at most 24 pixels more than 1e-2 of the scale apart, as
    ``tests/test_torch_golden_sky.py`` holds it) and against the plain CPU
-   path (at most 8 pixels another decision, the rest within 1e-2).
+   path (at most 8 pixels another decision, the rest within 1e-2);
+10. optics at full width, ``optics_scene(1920, 1080, 4)`` (the bench field
+   with a moving particle field at the reference's defaults, 8,192 quads in
+   a 10 m tile; spectral rendering under the DEFAULT sky's 8-band bake; the
+   physical camera's achromat), (a) as it is and (b) with the wavefront
+   sort: the pack seconds and the 8-band bake's, the peak memory of a
+   sample, Mrays/s beside tree-1080p's, the launches from 0 of A (the
+   8-band env rows apart), unplanar, B closest (the particle table apart),
+   B any-hit and C, the time per call of the particle tile walk, of each of
+   its kernel-B launches, of the lens trace and of the spectral resolve;
+   kernel B closest on the particle BVH against its plain walk under phase
+   3's rule, its bound from each ray's own walk; kernel A at C32 on the
+   8-band env rows bit for bit, its bytes bound; the card against the plain
+   CPU path at 64x36 on the same sky tables in both variants (at most 8
+   pixels another decision, the rest within RMSE/scale 1e-3; the card's
+   own 8-band bake within 1e-4 of the CPU's), the lens lanes that decided
+   otherwise counted.
 
 Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -1219,6 +1235,333 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
     return out
 
 
+def optics_path(dev, smi, cuda_ms, bound, tree, size=(1920, 1080)) -> dict:
+    """Phase 10: the optics slice at full width (``optics_scene(1920, 1080,
+    4)``: the bench field with a moving particle field at the reference's
+    defaults, spectral rendering under the DEFAULT sky's 8-band bake, the
+    physical lens camera), (a) as it is and (b) with the wavefront sort on.
+    For each: the pack seconds (the 8-band bake timed apart, once), the
+    peak memory of a sample, Mrays/s over a block beside tree-1080p's, the
+    launches from 0 of A (the 32-column 8-band env rows apart), unplanar, B
+    closest (the particle table apart), B any-hit and C, and the time of
+    each call of the particle tile walk, each of its kernel-B launches, the
+    lens trace and the spectral resolve. Kernel B closest on the particle
+    BVH against its plain walk under phase 3's rule, with its bound from
+    each ray's own walk; kernel A at C32 on the 8-band env rows bit for bit
+    with its bytes bound; the card against the plain CPU path at 64x36 on
+    the same tables, with the lanes whose lens trace decided otherwise
+    counted. Every failed check raises."""
+    import numpy as np
+    import torch
+
+    from luminary_tpu_torch.ops import rowops as RO
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops.camera_physical import (
+        generate_physical_camera_rays,
+    )
+    from luminary_tpu_torch.ops.procedural import PARTICLES_INSTANCE_ID
+    from luminary_tpu_torch.render import device_scene as D
+    from luminary_tpu_torch.render import wavefront as WF
+    from luminary_tpu_torch.render.renderer import Renderer
+    from luminary_tpu_torch.testing import optics_scene
+
+    W, H = size
+    out = {}
+    timed_fns = ("_particle_tier", "generate_physical_camera_rays",
+                 "resolve_to_rgb")
+
+    def instrumented_sample(r, ptable, spec_table):
+        """One sample with each call of the timed functions and each
+        particle-table launch of kernel B timed by CUDA events; the inputs
+        of depth 0's three particle launches and of each 8-band row fetch
+        kept."""
+        calls, saved = {}, {}
+        orig = {f: getattr(WF, f) for f in timed_fns}
+        orig_launch, orig_a = TR._launch, RO._launch
+
+        def events():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            return e0, e1
+
+        def timed(name, fn):
+            def wrap(*a, **k):
+                e0, e1 = events()
+                res = fn(*a, **k)
+                e1.record()
+                torch.cuda.synchronize()
+                calls.setdefault(name, []).append(e0.elapsed_time(e1))
+                return res
+            return wrap
+
+        def launch(rows, num_nodes, depth, origin, direction, t_max, active,
+                   any_hit, stats):
+            if rows.data_ptr() != ptable or any_hit or stats is not None:
+                return orig_launch(rows, num_nodes, depth, origin, direction,
+                                   t_max, active, any_hit, stats)
+            if len(saved.setdefault("b", [])) < 3:  # depth 0's segments
+                saved["b"].append(dict(o=origin, d=direction, t=t_max,
+                                       a=active))
+            e0, e1 = events()
+            res = orig_launch(rows, num_nodes, depth, origin, direction, t_max,
+                              active, any_hit, stats)
+            e1.record()
+            torch.cuda.synchronize()
+            calls.setdefault("kernel B particle launch", []).append(
+                e0.elapsed_time(e1))
+            return res
+
+        def launch_a(table, idx, n_cols, sub_stride):
+            if table.data_ptr() == spec_table:
+                saved.setdefault("a", []).append(idx)
+            return orig_a(table, idx, n_cols, sub_stride)
+
+        for f in timed_fns:
+            setattr(WF, f, timed(f, orig[f]))
+        TR._launch, RO._launch = launch, launch_a
+        try:
+            r.render_samples(1)
+            torch.cuda.synchronize()
+        finally:
+            for f in timed_fns:
+                setattr(WF, f, orig[f])
+            TR._launch, RO._launch = orig_launch, orig_a
+        return calls, saved
+
+    for label, sort in (("a", False), ("b", True)):
+        v = {}
+        scene = optics_scene(W, H, 4, sort=sort)
+        if not sort:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            D.bake_sky_spectral(scene, max(128, min(1024, 2 * W)), dev)
+            torch.cuda.synchronize()
+            v["spectral_bake_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        r = Renderer(scene, device=dev)
+        torch.cuda.synchronize()
+        v["pack_s"] = time.monotonic() - t0
+        ds, cfg = r.device_scene, r.config
+        pt = ds.particles
+        assert cfg.use_particles and cfg.spectral and cfg.use_physical_camera
+        assert cfg.sort_wavefront == sort and cfg.shading_mode == 0
+        assert pt.bvh.tri_v0.x.shape[0] >= 2 * 8192 and ds.sky.env_spec_rows.shape[1] == 32
+        ptable, spec_table = pt.bvh.rows.data_ptr(), ds.sky.env_spec_rows.data_ptr()
+        r.render_samples(1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r.render_samples(1)
+        v["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        v["peak_above_mb"] = v["peak_mb"] - base / 1e6
+        _path_counts(zero=True)
+        block = 3
+        t0 = time.monotonic()
+        r.render_samples(block)
+        dt = time.monotonic() - t0
+        counts = _path_counts()
+        counts["traverse_wide.closest particle table"] = \
+            TR.traverse_wide.table_launches.get(("closest", ptable), 0)
+        counts["gather_soa env_spec_rows C32"] = \
+            RO.gather_soa.table_launches.get(spec_table, 0)
+        v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
+                 mrays=r._last_rays_traced / dt / 1e6, launches=counts,
+                 rays_per_sample=r._last_rays_per_sample)
+        assert all(c > 0 for c in counts.values()), counts
+        calls, saved = instrumented_sample(r, ptable, spec_table)
+        v["ms_per_call"] = {f: dict(calls=len(c), ms_per_call=float(np.mean(c)),
+                                    ms=[float(x) for x in c])
+                            for f, c in calls.items()}
+        acc = r.accum.radiance[:W * H]
+        ids = r.gbuffer.instance_id[:W * H]
+        v["particle_pixels"] = int((ids == PARTICLES_INSTANCE_ID).sum())
+        assert bool(torch.isfinite(acc).all()) and float(acc.sum()) > 0.0
+        assert v["particle_pixels"] > 0
+        log("[optics %s] %dx%d depth 4, particles (8,192 quads) + spectral "
+            "(8-band DEFAULT sky) + physical camera%s: pack %.2f s%s; peak "
+            "memory of a sample %.1f MB (%.1f MB above the %.1f MB before it); "
+            "%d samples in %.3f s: %.3f Mrays/s (tree-1080p %.3f in this run; "
+            "%.0f rays/sample); %d primary pixels on a particle; launches %s "
+            "| %s" % (
+                label, W, H, " + wavefront sort" if sort else "", v["pack_s"],
+                ", the 8-band bake %.3f s" % v["spectral_bake_s"] if not sort
+                else "", v["peak_mb"], v["peak_above_mb"], base / 1e6, block,
+                dt, v["mrays"], tree["mrays"], v["rays_per_sample"],
+                v["particle_pixels"], counts, smi))
+        log("[optics %s calls] ms per call (calls in one sample): %s | %s" % (
+            label, ", ".join("%s %.3f (%d)" % (f, c["ms_per_call"], c["calls"])
+                             for f, c in v["ms_per_call"].items()), smi))
+        if not sort:
+            v["kernel_b"] = _closest_on_particles(pt.bvh, saved["b"], cuda_ms,
+                                                  bound, smi)
+            idx = torch.cat(saved["a"])
+            v["kernel_a"] = kernel_a_case(
+                "8-band env rows C32", ds.sky.env_spec_rows, idx, 32, 1, dev,
+                cuda_ms, bound, smi)
+        out[label] = v
+        del r, acc, saved
+        torch.cuda.empty_cache()
+
+    # the card against the plain CPU path: 64x36, depth 4, 2 samples, both
+    # variants, on the same sky tables (packed on the CPU, the 8-band bake
+    # included, and carried to the card); the card's own 8-band bake held
+    # against the CPU's apart (RMSE/scale < 1e-4); the lanes of the two
+    # samples whose lens trace decided otherwise (alive on one device only)
+    # counted. A pixel more than 1e-2 of the scale apart took another
+    # decision in one of its samples: at most 8 may, and the rest is held
+    # within RMSE/scale 1e-3.
+    out["card_vs_cpu"] = {}
+    for label, sort in (("a", False), ("b", True)):
+        def make():
+            return optics_scene(64, 36, 4, sort=sort)
+        sky_c = D.pack_sky(make(), "cpu")
+        sky_g = D.pack_sky(make(), dev)
+        e_c = sky_c.env_spec_rows[:, :8].numpy()
+        e_g = sky_g.env_spec_rows[:, :8].cpu().numpy()
+        bake_rel = float(np.sqrt(np.mean((e_g - e_c) ** 2))
+                         / (np.abs(e_c).mean() + 1e-12))
+        imgs, lens = {}, {}
+        for d in (dev, "cpu"):
+            rr = Renderer(make(), device=d)
+            rr.device_scene = rr.device_scene._replace(sky=dataclasses.replace(
+                sky_c, **{f.name: getattr(sky_c, f.name).to(d)
+                          for f in dataclasses.fields(sky_c)
+                          if isinstance(getattr(sky_c, f.name), torch.Tensor)}))
+            cam, c = rr.device_camera, rr.config
+            alive = []
+            for s in range(2):
+                px, py = rr._px, rr._py
+                pid = (py.long() * c.width + px.long()) & 0xFFFFFFFF
+                w = generate_physical_camera_rays(
+                    cam, cam.phys, c.width, c.height, px, py, pid,
+                    torch.tensor(s, device=px.device))[2]
+                # a lane the lens killed weighs 0 in every channel
+                alive.append((sum(x.abs() for x in w) > 0).cpu())
+            lens[str(d)] = torch.cat(alive)
+            t0 = time.monotonic()
+            rr.render_samples(2)
+            imgs[str(d)] = (rr.get_radiance(), time.monotonic() - t0)
+        (img_g, _), (img_c, cpu_s) = imgs[str(dev)], imgs["cpu"]
+        lens_other = int((lens[str(dev)] != lens["cpu"]).sum())
+        v = _card_vs_cpu(img_g, img_c, 1e-3, 8)
+        v.update(cpu_s=cpu_s, spectral_bake_rmse_over_scale=bake_rel,
+                 spectral_bake_bound=1e-4, lens_other_decision_lanes=lens_other,
+                 lens_lanes=int(lens["cpu"].numel()),
+                 lens_alive_share=float(lens["cpu"].float().mean()))
+        v["ok"] = v["ok"] and bake_rel < 1e-4
+        log("[optics vs cpu] %s, 64x36 depth 4, 2 samples: card against the "
+            "plain CPU path RMSE/scale %.3g over all pixels, %d of %d pixels "
+            "another decision (over 1e-2 of the scale apart, at most %d), %.3g "
+            "over the rest (bound %g); max abs %.3g; %d of %d lens lanes "
+            "decided otherwise (alive share %.4f); the card's 8-band bake "
+            "against the CPU's RMSE/scale %.3g (bound 1e-4); the CPU took "
+            "%.1f s | %s" % (
+                label, v["rmse_over_scale"], v["other_decision_pixels"],
+                v["pixels"], v["max_other"], v["rest_rmse_over_scale"],
+                v["bound"], v["max_abs"], lens_other, v["lens_lanes"],
+                v["lens_alive_share"], bake_rel, cpu_s, smi))
+        assert np.isfinite(img_g).all() and v["ok"], (label, v)
+        out["card_vs_cpu"][label] = v
+    return out
+
+
+def _closest_on_particles(pbvh, launches, cuda_ms, bound, smi) -> dict:
+    """Kernel B closest on the particle BVH: a sample's three tile segments
+    at depth 0 (the wrapped origins of each), against the plain walk on
+    every 7th lane of the three, under phase 3's rule: the same slot, an
+    exact-t tie, or a nearer hit of the kernel that its triangle tested
+    alone confirms (brute force); hit distances and barycentrics within
+    1e-5. Time, plain time (on those lanes) and bound (each ray's own walk)
+    of the first segment's launch, as the path makes it."""
+    import torch
+
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops.intersect import ray_triangle
+    from luminary_tpu_torch.ops.vec import Vec3
+
+    o = Vec3(*(torch.cat([s["o"][c] for s in launches]) for c in range(3)))
+    d = Vec3(*(torch.cat([s["d"][c] for s in launches]) for c in range(3)))
+    t = torch.cat([s["t"] for s in launches])
+    a = torch.cat([s["a"] for s in launches])
+    n = o.x.shape[0]
+    rows = pbvh.rows
+    hit = TR.traverse_wide(rows, pbvh.num_nodes, pbvh.depth, o, d, t, a, False)
+    ix = torch.arange(0, n, 7, device=t.device)
+    m = ix.numel()
+
+    def sub(v, i):
+        return Vec3(*(c[i] for c in v))
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    ref = TR.traverse_wide_plain(rows, pbvh.num_nodes, pbvh.depth, sub(o, ix),
+                                 sub(d, ix), t[ix], a[ix], False)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    got = TR.Hit(*(f[ix] for f in hit))
+    same = got.slot == ref.slot
+    both = (got.slot >= 0) & (ref.slot >= 0)
+    tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+    other = torch.nonzero(~same & ~tie).flatten()
+    n_tie, n_other = int(tie.sum()), int(other.numel())
+    confirmed = 0
+    if n_other:
+        lanes = ix[other]
+        g_slot = got.slot[other].clamp(min=0).long()
+        t_bf, _u, _v, h_bf = ray_triangle(
+            sub(o, lanes), sub(d, lanes), sub(pbvh.tri_v0, g_slot),
+            sub(pbvh.tri_e1, g_slot), sub(pbvh.tri_e2, g_slot))
+        nearer = (got.slot[other] >= 0) & ((ref.slot[other] < 0)
+                                           | (got.t[other] < ref.t[other]))
+        real = h_bf & ((t_bf - got.t[other]).abs() <= 1e-6 * got.t[other])
+        confirmed = int((nearer & real).sum())
+    keep = same & (got.slot >= 0)
+    n_hits = int(keep.sum())
+    err = 0.0
+    if n_hits:
+        err = float(torch.maximum((got.t - ref.t).abs(),
+                                  torch.maximum((got.u - ref.u).abs(),
+                                                (got.v - ref.v).abs()))[keep].max())
+    log("[kernel B closest, particle BVH] %d of %d lanes of depth 0's %d "
+        "segments vs plain (%s active): %d slots equal (%d hits), %d exact-t "
+        "ties, %d other differences (%d a nearer kernel hit confirmed by "
+        "brute force); max abs err of t, u, v %.3g" % (
+            m, n, len(launches), [int(s["a"].sum()) for s in launches],
+            int(same.sum()), n_hits, n_tie, n_other, confirmed, err))
+    assert err <= 1e-5 and n_tie <= max(1e-4 * m, 1) and confirmed == n_other, (
+        err, n_tie, n_other, confirmed)
+    assert n_hits > 0
+    # time and bound: the first segment's launch
+    o, d, t, a = (launches[0][k] for k in "odta")
+    n = o.x.shape[0]
+    ms = cuda_ms(lambda: TR.traverse_wide(rows, pbvh.num_nodes, pbvh.depth, o,
+                                          d, t, a, False))
+    stats = {}
+    TR.traverse_wide(rows, pbvh.num_nodes, pbvh.depth, o, d, t, a, False,
+                     stats=stats)
+    own = per_ray_tests(rows, pbvh.num_nodes, pbvh.depth, o, d, t, a, False)
+    n_active = int(a.sum())
+    # bytes: the 32-byte row of each active ray, its 16-byte hit, the active
+    # flag of every ray and the table; operations: each ray's own walk
+    b_ms, b_by = bound(n_active * 48 + n + rows.numel() * 4,
+                       own["node_tests"] * SLAB_OPS + own["tri_tests"] * TRI_OPS)
+    log("[kernel B closest, particle BVH] the first segment's launch, %d rays "
+        "(%d active): %.3f ms (plain %.3f ms on the %d checked lanes of the "
+        "three segments), bound %.4f ms (%s; the rays' own walks %d slab + %d "
+        "triangle tests, the 32-ray packets %d + %d) | %s" % (
+            n, n_active, ms, plain_ms, m, b_ms, b_by, own["node_tests"],
+            own["tri_tests"], stats["node_tests"], stats["tri_tests"], smi))
+    return dict(rays=n, active_rays=n_active, ms=ms, plain_ms=plain_ms,
+                plain_lanes=m, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err, differing_lanes=n_tie + n_other,
+                nearer_confirmed_lanes=confirmed, checked_lanes=m, tests=own,
+                packet_tests=stats)
+
+
 def _card_vs_cpu(img_g, img_c, bound, max_other) -> dict:
     """The card's image against the plain CPU path's: RMSE/scale over all
     pixels; the pixels more than 1e-2 of the scale apart (another decision
@@ -2051,6 +2394,16 @@ def main() -> int:
         for v in ("a", "b"):
             if k["name"] in sky_sea[v]["launches"]:
                 k["sky_sea_%s_launches" % v] = sky_sea[v]["launches"][k["name"]]
+
+    # ---- 10. optics at full width: particles, spectral, the lens, sort ----
+    optics = optics_path(dev, smi, cuda_ms, bound, report["tree_1080p"])
+    report["optics"] = optics
+    by_name["traverse_wide.closest"]["particle_table"] = optics["a"]["kernel_b"]
+    by_name["gather_soa"]["cases"].append(optics["a"]["kernel_a"])
+    for k in kern:
+        for v in ("a", "b"):
+            if k["name"] in optics[v]["launches"]:
+                k["optics_%s_launches" % v] = optics[v]["launches"][k["name"]]
     report["kernels"] = kern
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

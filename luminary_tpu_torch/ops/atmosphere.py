@@ -1,10 +1,12 @@
 """Physical sky: spherical single-scattering atmosphere with a multiscatter
 approximation, transmittance LUT and bakes (port of
-``luminary_tpu/ops/atmosphere.py``, RGB only).
+``luminary_tpu/ops/atmosphere.py``).
 
 Everything here is plain PyTorch run once at pack time on the scene's device:
 the transmittance and multiscatter LUTs, the lat-long environment bake and
-the aerial-perspective distance-curve rows. Units are kilometres.
+the aerial-perspective distance-curve rows. Units are kilometres. Every
+LUT and bake is generic in its channel count: RGB, or the 8 sky bands of
+spectral rendering (``atmo_params_from_sky(..., spectral=True)``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from . import math3
+from .spectral import ozone_beta_bands, rayleigh_beta_bands
 from .vec import rdiv
 
 EARTH_RADIUS = 6371.0
@@ -37,7 +40,8 @@ AERIAL_D_MAX = 64.0   # km
 
 
 class AtmoParams(NamedTuple):
-    """Atmosphere parameters: float32 tensors, [3] for the spectra."""
+    """Atmosphere parameters: float32 tensors, [C] for the spectra (C = 3
+    RGB channels or the 8 sky bands)."""
 
     beta_r: torch.Tensor
     beta_ms: torch.Tensor
@@ -60,15 +64,17 @@ def _f32(v, device):
     return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
 
-def atmo_params_from_sky(sky, device) -> AtmoParams:
+def atmo_params_from_sky(sky, device, spectral: bool = False) -> AtmoParams:
+    """The Sky entity's atmosphere on ``device``: RGB spectra, or with
+    ``spectral`` the Rayleigh and ozone spectra at the 8 sky bands."""
     g = torch.clamp(
         0.5 + 0.2 * torch.log10(torch.clamp(_f32(sky.mie_diameter, device), min=0.1)),
         0.2, 0.95)
     return AtmoParams(
-        beta_r=_f32(BETA_RAYLEIGH, device),
+        beta_r=_f32(rayleigh_beta_bands() if spectral else BETA_RAYLEIGH, device),
         beta_ms=_f32(BETA_MIE_SCATTER, device),
         beta_ma=_f32(BETA_MIE_ABSORB, device),
-        beta_o=_f32(BETA_OZONE_ABS, device),
+        beta_o=_f32(ozone_beta_bands() if spectral else BETA_OZONE_ABS, device),
         base_density=_f32(sky.base_density, device),
         rayleigh_density=_f32(sky.rayleigh_density, device),
         mie_density=_f32(sky.mie_density, device),

@@ -2,7 +2,10 @@
 
 Sensor plane at +Z looking down -Z in camera space, fov is the sensor
 half-width at z=1, aperture and focal distances in millimetre lens units,
-one subpixel jitter per sample shared by all pixels.
+one subpixel jitter per sample shared by all pixels. A camera with
+``use_physical_camera`` also packs its lens prescription (``phys``), and
+the integrator then traces its primary rays through the lens stack
+(``ops/camera_physical.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .camera_physical import pack_physical_camera
 from .random import RandomTarget, quasi_2d, random_1d, random_2d
 from .vec import Vec3, normalize, quaternion_apply_v, rdiv
 
@@ -31,15 +35,14 @@ class DeviceCamera(NamedTuple):
     aperture_shape_bladed: torch.Tensor  # bool
     object_distance: torch.Tensor
     camera_scale: torch.Tensor
+    phys: object = None  # DevicePhysicalCamera | None (lens-stack mode)
 
 
 def pack_camera(camera, device=None) -> DeviceCamera:
-    """Scene Camera entity → DeviceCamera (thin lens only) on ``device``;
-    None means the card, and raises without one."""
+    """Scene Camera entity → DeviceCamera on ``device`` (with the lens
+    prescription when the camera is physical); None means the card, and
+    raises without one."""
     device = resolve_device(device)
-    if camera.use_physical_camera:
-        raise NotImplementedError(
-            "the physical lens-stack camera is not ported yet")
     rx, ry, rz = (float(v) * 0.5 for v in camera.rotation)
     cr, sr, cp, sp, cy, sy = (
         np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
@@ -66,6 +69,8 @@ def pack_camera(camera, device=None) -> DeviceCamera:
         aperture_shape_bladed=t(int(camera.aperture_shape) == 1, np.bool_),
         object_distance=t(camera.object_distance),
         camera_scale=t(camera.camera_scale),
+        phys=(pack_physical_camera(camera, device)
+              if camera.use_physical_camera else None),
     )
 
 

@@ -1,8 +1,10 @@
-"""The procedural ocean surface (port of ``luminary_tpu/ops/procedural.py``,
-ocean half): the u32 lattice hash, value noise and FBM in numpy (the
+"""Procedural geometry (port of ``luminary_tpu/ops/procedural.py``): the
+ocean surface, with the u32 lattice hash, value noise and FBM in numpy (the
 tessellated mesh, built on the host in float64 as the reference builds it)
 and in PyTorch (the analytic surface the integrator marches, its normal and
-the caustic connection sampler, all in float32).
+the caustic connection sampler, all in float32); and the particle field's
+billboard quads (numpy over the same random generator, so that the corners
+come out bit for bit).
 
 The tensor forms evaluate the four lattice corners of a value-noise lookup
 in one stacked hash, and ``ocean_height_normal`` its five heights in one
@@ -17,8 +19,10 @@ import torch
 from .random import M32
 from .vec import sdiv
 
-# The ocean's stable instance id (picking; user instances count from 0).
+# The procedural instances' stable ids (picking; user instances count
+# from 0).
 OCEAN_INSTANCE_ID = 0x7FFF0000
+PARTICLES_INSTANCE_ID = 0x7FFF0001
 
 # Jerlov water types: (absorption RGB 1/m, scattering 1/m).
 JERLOV_COEFFS = {
@@ -101,6 +105,40 @@ def generate_ocean_mesh(ocean, center_xz: tuple[float, float] = (0.0, 0.0),
     n2 = np.stack([n00, n01, n11], axis=2).reshape(-1, 3, 3)
     return (np.concatenate([t1, t2]).astype(np.float32),
             np.concatenate([n1, n2]).astype(np.float32))
+
+
+def generate_particles(particles):
+    """Billboard quads in tile coordinates [0, scale)^3: the integrator
+    wraps ray origins into the tile. Returns (corners [T, 3, 3], normals
+    [T, 3, 3]), T = 2 x count."""
+    rng = np.random.default_rng(particles.seed)
+    count = int(particles.count)
+    scale = float(particles.scale)
+    centers = rng.random((count, 3), np.float32) * scale
+    sizes = (
+        0.01 * particles.size * (1.0 + particles.size_variation
+                                 * (rng.random(count, dtype=np.float32) - 0.5))
+    ).astype(np.float32)
+    # random facing
+    phi = rng.random(count, dtype=np.float32) * 2 * np.pi
+    ct = rng.random(count, dtype=np.float32) * 2 - 1
+    st = np.sqrt(np.maximum(1 - ct * ct, 0))
+    n = np.stack([st * np.cos(phi), ct, st * np.sin(phi)], axis=-1)
+    up = np.where(np.abs(n[:, 1:2]) < 0.9, [[0.0, 1.0, 0.0]], [[1.0, 0.0, 0.0]])
+    t = np.cross(up, n)
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    b = np.cross(n, t)
+    s = sizes[:, None]
+    p0 = centers - t * s - b * s
+    p1 = centers + t * s - b * s
+    p2 = centers + t * s + b * s
+    p3 = centers - t * s + b * s
+    t1 = np.stack([p0, p1, p2], axis=1)
+    t2 = np.stack([p0, p2, p3], axis=1)
+    corners = np.concatenate([t1, t2]).astype(np.float32)
+    nn = np.concatenate([n, n]).astype(np.float32)
+    normals = np.repeat(nn[:, None, :], 3, axis=1)
+    return corners, normals
 
 
 # ---- PyTorch (device): the analytic surface ----

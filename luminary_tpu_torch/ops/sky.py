@@ -8,6 +8,10 @@ a lerp. The solar disc stays analytic; in DEFAULT mode moon and stars are
 procedural. Aerial perspective reads one 128-column distance-curve row per
 lane, also through kernel A. Environment NEE draws a cell of the map by its
 alias row and a direction uniformly inside it.
+
+Spectral rendering: the DEFAULT atmosphere is also baked at the 8 sky bands
+into 32-column quad rows, fetched through kernel A the same way; HDRI,
+user and constant skies uplift their RGB radiance to each hero wavelength.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from .atmosphere import AERIAL_D_MAX, AERIAL_D_MIN, AERIAL_ND, AERIAL_NS, AERIAL_NU
 from .random import M32
 from .rowops import gather_planar
+from .spectral import sample_spectrum_bands, uplift
 from .vec import Vec3, dot as vdot, normalize, sdiv
 
 MOON_ANGULAR_RADIUS = 0.00452
@@ -68,6 +73,28 @@ def sample_env_rows(sky, d: Vec3):
         return top * one_wy + bot * wy
 
     return lerp(0), lerp(1), lerp(2)
+
+
+def sample_env_spec_rows(sky, d: Vec3) -> torch.Tensor:
+    """Bilinear fetch of the 8-band env from its quad rows (bands at (y,
+    x), (y, x+1), (y+1, x), (y+1, x+1)): one kernel-A row gather of 32
+    columns per lane. Returns planar bands [8, N]."""
+    h = float(sky.env_spec_h)
+    w = float(sky.env_spec_w)
+    wi = int(sky.env_spec_w)
+    theta = torch.arccos(torch.clamp(d.y, -1.0, 1.0))
+    phi = torch.atan2(d.z, d.x) % _TWO_PI
+    fy = torch.clamp(theta * (1.0 / np.pi) * h - 0.5, 0.0, h - 1.001)
+    fx = phi * (0.5 / np.pi) * w - 0.5
+    x0f = torch.floor(fx)
+    x0 = x0f.to(torch.int32) % wi
+    y0 = torch.clamp(fy.to(torch.int32), 0, int(sky.env_spec_h) - 2)
+    wy = fy - y0.to(torch.float32)
+    wx = fx - x0f
+    r0 = gather_planar(sky.env_spec_rows, y0 * wi + x0)  # [32, N]
+    top = r0[0:8] * (1.0 - wx) + r0[8:16] * wx
+    bot = r0[16:24] * (1.0 - wx) + r0[24:32] * wx
+    return top * (1.0 - wy) + bot * wy
 
 
 def _hash_u32(x):
@@ -173,6 +200,54 @@ def sky_radiance(sky, direction: Vec3, include_sun: bool = True) -> Vec3:
     sg = torch.where(block, 0.0, sg)
     sb = torch.where(block, 0.0, sb)
     return Vec3(r + (moon + sr), g + (moon + sg), b + (moon + sb))
+
+
+def has_spectral_bake(sky) -> bool:
+    """Whether the sky carries the 8-band bake (a DEFAULT sky packed for
+    spectral rendering; the dummy table has one row)."""
+    return int(sky.env_spec_rows.shape[0]) > 1
+
+
+def sky_radiance_spectral(sky, direction: Vec3, lam3):
+    """Environment radiance at the three hero wavelengths, without the solar
+    disc (the integrator pairs the disc with the sun strategy): the 8-band
+    bake where it exists, else the uplifted RGB map; DEFAULT skies add the
+    uplifted stars and the moon, constant skies are their uplifted colour.
+    Returns a 3-tuple of [N]."""
+    d = direction
+    mode = int(sky.mode)
+    if mode == 2:
+        c = sky.constant_color
+        return tuple(uplift(c[0], c[1], c[2], lam).expand(d.x.shape)
+                     for lam in lam3)
+    if has_spectral_bake(sky):
+        bands = sample_env_spec_rows(sky, d)
+        dome = tuple(sample_spectrum_bands(bands, lam) for lam in lam3)
+    else:
+        r, g, b = sample_env_rows(sky, d)
+        dome = tuple(uplift(r, g, b, lam) for lam in lam3)
+    if mode != 0:  # an HDRI map holds its moon and stars
+        return dome
+    moon, in_moon = moon_radiance(sky, d)
+    sr, sg, sb = stars_radiance(sky, d)
+    block = in_moon | (vdot(d, sun_dir_vec(sky)) >= SUN_COS_RADIUS)
+    sr = torch.where(block, 0.0, sr)
+    sg = torch.where(block, 0.0, sg)
+    sb = torch.where(block, 0.0, sb)
+    return tuple(dome[j] + (uplift(sr, sg, sb, lam) + moon)
+                 for j, lam in enumerate(lam3))
+
+
+def sun_radiance_spectral(sky, lam3):
+    """Solar-disc radiance at the hero wavelengths: the banded spectrum of
+    the 8-band bake where it exists, else the uplifted RGB disc; zero for
+    constant skies."""
+    on = 0.0 if int(sky.mode) == 2 else 1.0
+    if has_spectral_bake(sky):
+        return tuple(sample_spectrum_bands(sky.sun_disc_spec, lam) * on
+                     for lam in lam3)
+    c = sky.sun_disc_radiance
+    return tuple(uplift(c[0], c[1], c[2], lam) * on for lam in lam3)
 
 
 def aerial_fetch(sky, direction: Vec3, dist):

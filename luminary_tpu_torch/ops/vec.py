@@ -93,6 +93,23 @@ def normalize(v: Vec3, eps: float = 1e-20) -> Vec3:
     return Vec3(v.x * inv, v.y * inv, v.z * inv)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA and CUDA take it.
+    PyTorch's float32 CPU kernel is an ulp off on ~0.7 % of inputs, which
+    formulas that cancel badly amplify; on the CPU this goes through
+    float64 (rounded once: exact for a square root)."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def normalize_rn(v: Vec3, eps: float = 1e-20) -> Vec3:
+    """:func:`normalize` with the correctly rounded square root."""
+    inv = torch.reciprocal(torch.clamp(sqrt_rn(torch.clamp(dot(v, v), min=0.0)),
+                                       min=eps))
+    return Vec3(v.x * inv, v.y * inv, v.z * inv)
+
+
 def vwhere(mask, a: Vec3, b: Vec3) -> Vec3:
     """Component select by an ``[N]`` (or scalar) mask."""
     return Vec3(

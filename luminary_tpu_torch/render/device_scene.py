@@ -16,9 +16,12 @@ as inf, and a normal map on that triangle then gives a NaN shading normal,
 as in the reference.
 
 The sky packs in all three modes (DEFAULT, HDRI baked or from a user map,
-CONSTANT_COLOR); the ocean adds its water material (and, tessellated, its
-mesh) and the water and cloud parameters ride along. Particles are refused
-with NotImplementedError, never stubbed.
+CONSTANT_COLOR), and for spectral rendering a DEFAULT sky is baked a second
+time at the 8 sky bands on the card; the ocean adds its water material (and,
+tessellated, its mesh) and the water and cloud parameters ride along. An
+active particle field packs its quads, in tile coordinates, into a BVH of
+their own (``DeviceParticles``) and adds the particle material after the
+water's.
 """
 
 from __future__ import annotations
@@ -42,7 +45,11 @@ from ..ops.textures import (
 )
 from ..ops.traverse import DeviceBVH, pack_device_bvh
 from ..ops.vec import Vec3
-from ..ops.procedural import OCEAN_INSTANCE_ID, generate_ocean_mesh
+from ..ops.procedural import (
+    OCEAN_INSTANCE_ID,
+    generate_ocean_mesh,
+    generate_particles,
+)
 from ..ops.volume import DeviceFog, DeviceWater, pack_fog, pack_water
 from ..scene.entities import TEXTURE_NONE, Material, MaterialBaseSubstrate
 from ..scene.scene import Scene
@@ -138,6 +145,13 @@ class DeviceSky:
     env_ch: int
     env_cw: int
     env_nee_total: float
+    # the 8-band bake of spectral rendering (DEFAULT skies): quad rows of
+    # bands at (y, x), (y, x+1), (y+1, x), (y+1, x+1) and the disc's
+    # spectrum; a dummy [1, 32] table and zeros otherwise
+    env_spec_rows: torch.Tensor  # f32 [Hs*Ws, 32]
+    env_spec_h: int
+    env_spec_w: int
+    sun_disc_spec: torch.Tensor  # f32 [8]
     aerial_rows: torch.Tensor  # f32 [NU*NS, 128] (dummy [1, 128] when off)
     sun_disc_radiance: torch.Tensor  # f32 [3]
     moon_dir: torch.Tensor  # f32 [3]
@@ -160,6 +174,20 @@ class DeviceSceneGeo(NamedTuple):
     face_normal: Vec3
 
 
+@dataclass
+class DeviceParticles:
+    """The tiled particle field: a second BVH over the quad soup in tile
+    coordinates [0, scale)^3. The integrator wraps each lane's origin (plus
+    the sample's motion offset, direction x speed x time: motion blur) into
+    the tile and walks this table. Particles are seen on delta paths only
+    and occlude nothing. Scalars are host floats holding float32 values."""
+
+    bvh: DeviceBVH
+    scale: float  # the tile's edge length
+    motion: tuple  # (x, y, z): the field's direction x speed
+    albedo: tuple  # (r, g, b)
+
+
 class DeviceScene(NamedTuple):
     geo: DeviceSceneGeo
     materials: DeviceMaterials
@@ -174,6 +202,7 @@ class DeviceScene(NamedTuple):
     shade_micro: torch.Tensor  # f32 [P, 16] micro cell weights ([1, 16] without)
     light_slot_rows: torch.Tensor  # f32 [L, 37] ([L, 69] with micro weights)
     ggx_quad: torch.Tensor  # f32 [32*32, 4] energy-LUT quads
+    particles: DeviceParticles | None = None
 
 
 # ---- shade-row decoders (consumed by render/wavefront.py) ----
@@ -456,14 +485,18 @@ def upload_geometry(hg: HostGeometry, device) -> DeviceSceneGeo:
 
 
 def procedural_materials(scene: Scene) -> list[Material]:
-    """Materials appended after the user's: the ocean's water (id
-    num_materials when the ocean is on)."""
-    if not scene.ocean.active:
-        return []
-    return [Material(albedo=(0.9, 0.95, 1.0, 1.0),
-                     base_substrate=MaterialBaseSubstrate.TRANSLUCENT,
-                     refraction_index=scene.ocean.refractive_index,
-                     roughness=0.05)]
+    """Materials appended after the user's: the ocean's water, then the
+    particles' albedo (ids num_materials + 0 / + 1 as they are active)."""
+    out = []
+    if scene.ocean.active:
+        out.append(Material(albedo=(0.9, 0.95, 1.0, 1.0),
+                            base_substrate=MaterialBaseSubstrate.TRANSLUCENT,
+                            refraction_index=scene.ocean.refractive_index,
+                            roughness=0.05))
+    if scene.particles.active:
+        a = scene.particles.albedo
+        out.append(Material(albedo=(a[0], a[1], a[2], 1.0), roughness=1.0))
+    return out
 
 
 def materials_np(scene: Scene) -> dict:
@@ -736,6 +769,50 @@ def env_to_rows(env: np.ndarray) -> np.ndarray:
     return rows
 
 
+def env_to_rows_spec(env8: np.ndarray) -> np.ndarray:
+    """8-band env [H, W, 8] → bilinear-quad rows [H*W, 32]: the bands at
+    (y, x), (y, x+1), (y+1, x), (y+1, x+1)."""
+    h, w = env8.shape[:2]
+    rows = np.zeros((h * w, 32), np.float32)
+    rows[:, 0:8] = env8.reshape(-1, 8)
+    rows[:, 8:16] = np.roll(env8, -1, axis=1).reshape(-1, 8)
+    dn = env8[np.minimum(np.arange(h) + 1, h - 1)]
+    rows[:, 16:24] = dn.reshape(-1, 8)
+    rows[:, 24:32] = np.roll(dn, -1, axis=1).reshape(-1, 8)
+    return rows
+
+
+def bake_sky_spectral(scene: Scene, env_w: int, device):
+    """The 8-band DEFAULT atmosphere on ``device``: (env [Hs, Ws, 8] with
+    Ws = max(env_w / 2, 64), Hs = Ws / 2, the disc's spectrum [8])."""
+    from ..ops.atmosphere import (
+        atmo_params_from_sky, bake_sky_envmap, build_multiscatter_lut,
+        build_transmittance_lut, sample_transmittance_lut,
+    )
+    from ..ops.sky import SUN_IRRADIANCE, SUN_RADIANCE
+    from ..ops.spectral import sun_irradiance_bands
+
+    sky = scene.sky
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    p8 = atmo_params_from_sky(sky, device, spectral=True)
+    t_lut8 = build_transmittance_lut(p8)
+    ms_lut8 = build_multiscatter_lut(p8, t_lut8)
+    h_obs = f32(max(float(sky.geometry_offset[1]), 0.001))
+    sun_dir_t = f32(sun_direction(sky.azimuth, sky.altitude))
+    bands = f32(sun_irradiance_bands())
+    irr8 = bands * f32(SUN_IRRADIANCE * sky.sun_strength)
+    sw = max(env_w // 2, 64)
+    env8 = bake_sky_envmap(p8, t_lut8, ms_lut8, h_obs, sun_dir_t, irr8,
+                           width=sw, height=sw // 2,
+                           steps=int(min(max(sky.steps, 8), 64)))
+    t_sun8 = sample_transmittance_lut(t_lut8, h_obs, sun_dir_t[1])
+    disc8 = t_sun8 * bands * f32(SUN_RADIANCE * sky.sun_strength)
+    return env8, disc8
+
+
 def _build_env_nee(env: np.ndarray, is_constant: bool):
     """Cell-grid importance distribution over the baked env map (built
     always, as in the reference; env NEE itself is an HDRI-only strategy)."""
@@ -888,6 +965,19 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
         if not is_hdri and getattr(scene.settings, "aerial_perspective", True):
             aerial = bake_aerial_rows(p, t_lut, ms_lut, h_obs, sun_dir_t, sun_irr)
 
+    # the 8-band bake (DEFAULT and baked HDRI skies; a user map and a
+    # constant sky uplift their RGB at shading time instead)
+    if (getattr(scene.settings, "spectral_rendering", False)
+            and not is_constant and not (is_hdri and user_env is not None)):
+        env8, sun_disc_spec = bake_sky_spectral(scene, env_res[1], device)
+        env_spec_rows = _t(env_to_rows_spec(env8.cpu().numpy()), device)
+        env_spec_h, env_spec_w = int(env8.shape[0]), int(env8.shape[1])
+    else:
+        env_spec_rows = _t(env_to_rows_spec(np.zeros((1, 1, 8), np.float32)),
+                           device)
+        env_spec_h = env_spec_w = 1
+        sun_disc_spec = f32(np.zeros(8))
+
     alias_rows, cell_pdf, ch, cw, nee_total = _build_env_nee(env, is_constant)
     return DeviceSky(
         mode=mode,
@@ -901,6 +991,10 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
         env_ch=int(ch),
         env_cw=int(cw),
         env_nee_total=float(np.float32(nee_total)),
+        env_spec_rows=env_spec_rows,
+        env_spec_h=env_spec_h,
+        env_spec_w=env_spec_w,
+        sun_disc_spec=sun_disc_spec,
         aerial_rows=aerial,
         sun_disc_radiance=sun_disc,
         moon_dir=f32(sun_direction(sky.moon_azimuth, sky.moon_altitude)),
@@ -911,17 +1005,35 @@ def pack_sky(scene: Scene, device) -> DeviceSky:
     )
 
 
-def check_scene_supported(scene: Scene) -> None:
-    """Raise NotImplementedError for scene features the port lacks."""
-    if scene.particles.active:
-        raise NotImplementedError("particles are not ported yet")
+def pack_particles_device(particles, device) -> DeviceParticles | None:
+    """The particle field's quads → a tile-space wide BVH on ``device``
+    (None when the field is off or empty)."""
+    if not particles.active or int(particles.count) <= 0:
+        return None
+    corners, _normals = generate_particles(particles)
+    wide = build_wide_native(corners)
+    order = wide.tri_order
+    valid = order >= 0
+    c = corners[np.where(valid, order, 0)].copy()
+    c[~valid] = 0.0
+    v0 = c[:, 0]
+    e1 = c[:, 1] - c[:, 0]
+    e2 = c[:, 2] - c[:, 0]
+    motion = sun_direction(float(particles.direction_azimuth),
+                           float(particles.direction_altitude)
+                           ) * np.float32(particles.speed)
+    return DeviceParticles(
+        bvh=pack_device_bvh(wide, v0, e1, e2, device),
+        scale=float(np.float32(max(float(particles.scale), 1e-6))),
+        motion=tuple(float(m) for m in motion.astype(np.float32)),
+        albedo=tuple(float(a) for a in np.asarray(particles.albedo, np.float32)),
+    )
 
 
 def pack_scene(scene: Scene, device=None) -> DeviceScene:
-    """Full scene pack on ``device`` (refusing unported features); None
-    means the card, and raises without one."""
+    """Full scene pack on ``device``; None means the card, and raises
+    without one."""
     device = resolve_device(device)
-    check_scene_supported(scene)
     hg = pack_geometry_np(scene)
     mats = materials_np(scene)
     lights = pack_lights_for(hg, mats, scene=scene)
@@ -940,6 +1052,7 @@ def pack_scene(scene: Scene, device=None) -> DeviceScene:
         shade_micro=_t(pack_shade_micro(hg, lights), device),
         light_slot_rows=_t(pack_light_slot_rows(hg, mats, lights), device),
         ggx_quad=_t(ggx_energy_quad(), device),
+        particles=pack_particles_device(scene.particles, device),
     )
 
 
@@ -958,12 +1071,14 @@ def from_jax_arrays(tree: dict, device):
     dicts of numpy arrays and numbers (``tree["scene"]``, ``tree["camera"]``,
     field names as in the reference), → the port's (DeviceScene,
     DeviceCamera). The interleaved shade tables become one slot per row;
-    depth and num_nodes are kept."""
+    depth and num_nodes are kept. The particle field (``scene["particles"]``,
+    None when off), the 8-band sky tables and the lens prescription
+    (``camera["phys"]``, None for a thin lens) come along."""
     from ..ops.camera import DeviceCamera
+    from ..ops.camera_physical import DevicePhysicalCamera
 
     s = tree["scene"]
     g = s["geo"]
-    b = g["bvh"]
 
     def v3(x):
         return Vec3(*(_t(np.asarray(c, np.float32), device) for c in x))
@@ -971,16 +1086,20 @@ def from_jax_arrays(tree: dict, device):
     def opt(x, dtype):
         return None if x is None else _t(np.asarray(x, dtype), device)
 
-    bvh = DeviceBVH(
-        rows=_t(np.asarray(b["rows"], np.float32), device),
-        tri_v0=v3(b["tri_v0"]), tri_e1=v3(b["tri_e1"]), tri_e2=v3(b["tri_e2"]),
-        dense_tris=opt(b["dense_tris"], np.float32),
-        dense_slot=opt(b["dense_slot"], np.int32),
-        bounds=_t(np.asarray(b["bounds"], np.float32), device),
-        depth=int(b["depth"]), num_nodes=int(b["num_nodes"]),
-        rows_shadow=opt(b["rows_shadow"], np.float32),
-        cut_tris=opt(b["cut_tris"], np.float32),
-    )
+    def bvh_of(b):
+        return DeviceBVH(
+            rows=_t(np.asarray(b["rows"], np.float32), device),
+            tri_v0=v3(b["tri_v0"]), tri_e1=v3(b["tri_e1"]),
+            tri_e2=v3(b["tri_e2"]),
+            dense_tris=opt(b["dense_tris"], np.float32),
+            dense_slot=opt(b["dense_slot"], np.int32),
+            bounds=_t(np.asarray(b["bounds"], np.float32), device),
+            depth=int(b["depth"]), num_nodes=int(b["num_nodes"]),
+            rows_shadow=opt(b["rows_shadow"], np.float32),
+            cut_tris=opt(b["cut_tris"], np.float32),
+        )
+
+    bvh = bvh_of(g["bvh"])
     p = int(np.asarray(g["material_id"]).shape[0])
     geo = DeviceSceneGeo(
         bvh=bvh, n0=v3(g["n0"]), n1=v3(g["n1"]), n2=v3(g["n2"]),
@@ -1009,6 +1128,9 @@ def from_jax_arrays(tree: dict, device):
         env_alias_rows=f32(k["env_alias_rows"]),
         env_cell_pdf=f32(k["env_cell_pdf"]), env_ch=int(k["env_ch"]),
         env_cw=int(k["env_cw"]), env_nee_total=float(k["env_nee_total"]),
+        env_spec_rows=f32(k["env_spec_rows"]),
+        env_spec_h=int(k["env_spec_h"]), env_spec_w=int(k["env_spec_w"]),
+        sun_disc_spec=f32(k["sun_disc_spec"]),
         aerial_rows=f32(k["aerial_rows"]),
         sun_disc_radiance=f32(k["sun_disc_radiance"]),
         moon_dir=f32(k["moon_dir"]), moon_tex_offset=f32(k["moon_tex_offset"]),
@@ -1066,8 +1188,16 @@ def from_jax_arrays(tree: dict, device):
         shade_micro=f32(s["shade_micro"]),
         light_slot_rows=f32(s["light_slot_rows"]),
         ggx_quad=_t(ggx_energy_quad(), device),
+        particles=None if s.get("particles") is None else DeviceParticles(
+            bvh=bvh_of(s["particles"]["bvh"]),
+            scale=float(np.float32(s["particles"]["scale"])),
+            motion=tuple(float(np.float32(m))
+                         for m in np.asarray(s["particles"]["motion"])),
+            albedo=tuple(float(np.float32(a))
+                         for a in np.asarray(s["particles"]["albedo"]))),
     )
     c = tree["camera"]
+    ph = c.get("phys")
     cam = DeviceCamera(
         pos=f32(c["pos"]), rotation_q=f32(c["rotation_q"]), fov=f32(c["fov"]),
         aperture_size=f32(c["aperture_size"]),
@@ -1075,5 +1205,9 @@ def from_jax_arrays(tree: dict, device):
         aperture_shape_bladed=_t(c["aperture_shape_bladed"], device, np.bool_),
         object_distance=f32(c["object_distance"]),
         camera_scale=f32(c["camera_scale"]),
+        phys=None if ph is None else DevicePhysicalCamera(
+            **{k: f32(ph[k]) for k in DevicePhysicalCamera._fields
+               if k != "spectral"},
+            spectral=_t(np.asarray(ph["spectral"], np.bool_), device)),
     )
     return scene, cam

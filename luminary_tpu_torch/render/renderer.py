@@ -4,9 +4,8 @@
 tonemap, the undersampled preview, picking and checkpoint/resume).
 
 ``Renderer(scene, device=None)`` renders on the first CUDA card and raises
-without one; ``device="cpu"`` runs the plain PyTorch path. Every RenderConfig
-feature of the reference that the port has not ported is refused with
-NotImplementedError when the scene asks for it.
+without one; ``device="cpu"`` runs the plain PyTorch path. The scene's
+settings switch every RenderConfig feature as the reference's Renderer does.
 """
 
 from __future__ import annotations
@@ -138,21 +137,6 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def unported_features(scene: Scene) -> list[str]:
-    """The reference's RenderConfig switches this scene would turn on that
-    the port lacks (names as in the reference)."""
-    s = scene.settings
-    flags = {
-        "use_physical_camera": bool(scene.camera.use_physical_camera),
-        "spectral": bool(getattr(s, "spectral_rendering", False)),
-        "use_particles": bool(scene.particles.active
-                              and int(scene.particles.count) > 0),
-        "sort_wavefront": bool(getattr(s, "wavefront_sorting", False)),
-        "shading_mode": int(s.shading_mode) != 0,
-    }
-    return [k for k, on in flags.items() if on]
-
-
 class Renderer:
     """Single-card renderer over the port's device scene."""
 
@@ -182,10 +166,6 @@ class Renderer:
         flags = self.scene.consume_dirty()
         if flags == DirtyFlags.NONE:
             return flags
-        missing = unported_features(self.scene)
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch renderer yet: " + ", ".join(missing))
         s = self.scene.settings
         ss = max(int(s.supersampling), 1)
         rw_full, rh_full = s.width * ss, s.height * ss
@@ -202,6 +182,7 @@ class Renderer:
         chunk = _round_up(-(-n_pixels // n_chunks), 256)
         mode = int(self.scene.sky.mode)
         ocean = self.scene.ocean
+        particles = self.scene.particles
         cloud_layers = active_layer_indices(self.scene.cloud)
 
         self.device_scene = pack_scene(self.scene, self.device)
@@ -212,7 +193,11 @@ class Renderer:
             width=rw_full,
             height=rh_full,
             max_depth=max(int(s.max_ray_depth), 1),
+            shading_mode=int(s.shading_mode),
             ris_candidates=k_eff,
+            # the opt-in wavefront sort (off by default: it was net-negative
+            # on the TPU)
+            sort_wavefront=bool(getattr(s, "wavefront_sorting", False)),
             use_textures=len(self.scene.textures) > 0,
             use_aux_textures=any(
                 m.roughness_tex != TEXTURE_NONE or m.metallic_tex != TEXTURE_NONE
@@ -241,6 +226,14 @@ class Renderer:
             analytic_ocean=bool(ocean.active
                                 and not getattr(ocean, "tessellated", False)),
             water_scatter=bool(ocean.active),
+            use_physical_camera=bool(self.scene.camera.use_physical_camera),
+            spectral=bool(getattr(s, "spectral_rendering", False)),
+            use_particles=bool(particles.active and int(particles.count) > 0),
+            particle_diameter=float(particles.phase_diameter),
+            # the particle material follows the water's
+            particle_mat_id=(len(self.scene.materials)
+                             + (1 if ocean.active else 0)
+                             if particles.active else -1),
         )
         self.device_camera = pack_camera(self.scene.camera, self.device)
         self._ss = ss

@@ -28,14 +28,27 @@ surface's sign-change test on every shadow segment, and the cloud march on
 the miss side. The batched shadow walk takes the reference's segments in its
 order: sun, light, env, caustic x→P, caustic P→sun.
 
+Optics: the physical lens camera traces the primary rays through its lens
+stack and starts each path with the lens weight; the tiled particle field
+is a second closest walk (kernel B on the particle BVH, up to three tile
+segments a depth) on delta paths, and its hits scatter by the
+Jendersie-d'Eon phase (sun, light, env and caustic NEE, the bounce);
+spectral rendering carries three hero wavelengths in the channel slots
+(every RGB quantity uplifted to its slot's wavelength, the dielectric IOR
+dispersed by Cauchy, the DEFAULT sky from its 8-band bake, one resolve to
+sRGB at the end); the opt-in wavefront sort permutes every lane's state
+between depths by a coherence key (a stable sort) and unscrambles the
+radiance at the end; a debug shading mode returns a false-colour image of
+the primary hits.
+
 The branches run in the reference's order, so that every random stream is
-drawn at the same point. Branches of the reference that the port does not
-have (spectral, the physical camera, particles, wavefront sorting, debug
-shading) are refused by the Renderer rather than stubbed. Without fog,
-water, clouds, cutouts or textures the reference's terms for them are exact
-identities (no collisions, transmittance 1), so the port skips them and
-changes no value. The marches (ocean, clouds, caustic connection) run on
-the lanes that use their result only.
+drawn at the same point. Without fog, water, clouds, cutouts or textures
+the reference's terms for them are exact identities (no collisions,
+transmittance 1), so the port skips them and changes no value; under
+spectral rendering a transmittance of 1 is uplifted like any other (the
+uplift of white is 1 only to ~2e-4), so the port uplifts it too. The
+marches (ocean, clouds, caustic connection) run on the lanes that use their
+result only.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import numpy as np
 import torch
 
 from ..ops.camera import DeviceCamera, generate_camera_rays
+from ..ops.camera_physical import generate_physical_camera_rays
 from ..ops.intersect import MISS_DIST
 from ..ops.light_tree import sample_light_tree
 from ..ops.lights import light_pdf_from_row, mis_balance, sample_light_point
@@ -63,7 +77,8 @@ from ..ops.bridges import sample_bridge
 from ..ops.caustics import sample_caustic_connection
 from ..ops.clouds import cloud_march, cloud_sun_transmittance
 from ..ops.ocean import ocean_crosses, ocean_intersect, ocean_normal
-from ..ops.procedural import OCEAN_INSTANCE_ID
+from ..ops.phase import je_phase, je_sample_direction
+from ..ops.procedural import OCEAN_INSTANCE_ID, PARTICLES_INSTANCE_ID
 from ..ops.random import RandomTarget, blue_base, random_1d
 from ..ops.rowops import gather_packed_planar, gather_planar
 from ..ops.sky import (
@@ -73,12 +88,20 @@ from ..ops.sky import (
     env_pdf,
     sample_env_direction,
     sky_radiance,
+    sky_radiance_spectral,
     sun_dir_vec,
+    sun_radiance_spectral,
     sun_solid_angle_radiance,
+)
+from ..ops.spectral import (
+    cauchy_ior,
+    resolve_to_rgb,
+    sample_hero_wavelengths,
+    uplift,
 )
 from ..ops.textures import sample_atlas
 from ..ops.traverse import Hit, trace_closest, trace_occluded, trace_transmission
-from ..ops.vec import Vec3, dot, gather as vgather, normalize, vwhere
+from ..ops.vec import Vec3, dot, gather as vgather, normalize, sdiv, vwhere
 from ..ops.volume import (
     fog_transmittance,
     hg_phase,
@@ -89,7 +112,7 @@ from ..ops.volume import (
     sample_water_collision,
     water_transmittance,
 )
-from ..ops.wavefront_utils import sample_sun_direction
+from ..ops.wavefront_utils import ray_sort_key, sample_sun_direction
 from .device_scene import (
     MAT_FLAG_EMISSIVE,
     MAT_FLAG_THIN_WALLED,
@@ -127,14 +150,18 @@ from .device_scene import (
 
 
 class RenderConfig(NamedTuple):
-    """Static per-render configuration (the ported subset of the
-    reference's RenderConfig, same field names; the whole wavefront is
-    traced in one launch, so there is no trace chunk)."""
+    """Static per-render configuration (the reference's RenderConfig, same
+    field names; the whole wavefront is traced in one launch, so there is
+    no trace chunk)."""
 
     width: int
     height: int
     max_depth: int
+    shading_mode: int = 0  # ShadingMode: 0 the path tracer, 1-5 debug views
     ris_candidates: int = 4
+    # re-sort the wavefront between depths by (liveness, direction octant,
+    # origin Morton code)
+    sort_wavefront: bool = False
     use_textures: bool = False  # albedo maps (and the aux row)
     use_aux_textures: bool = False  # roughness/metallic/normal/luminance maps
     # bridge volume NEE, on with fog: fog vertices connect to the chosen
@@ -160,6 +187,15 @@ class RenderConfig(NamedTuple):
     analytic_ocean: bool = False
     # water in-scattering, on with the ocean
     water_scatter: bool = False
+    use_physical_camera: bool = False  # primary rays through the lens stack
+    # three hero wavelengths in the channel slots, resolved to sRGB at the
+    # end of each sample
+    spectral: bool = False
+    # the tiled particle field: a second BVH walked on delta paths,
+    # scattering by the Jendersie-d'Eon phase of this droplet diameter
+    use_particles: bool = False
+    particle_diameter: float = 50.0
+    particle_mat_id: int = -1
 
 
 class GBufferMeta(NamedTuple):
@@ -268,9 +304,33 @@ def _normal_mapped(ns: Vec3, u0: Vec3, v0: Vec3, e1v: Vec3, e2v: Vec3,
     return vwhere((normal_tex >= 0) & ok, mapped, ns)
 
 
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def floor_mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """``x`` mod ``m`` with the sign of ``m`` (JAX's ``jnp.mod``: the
+    truncated remainder, plus ``m`` where it is non-zero and of the other
+    sign; that sum rounds, so a tiny negative ``x`` wraps to ``m``). A
+    subnormal remainder counts as zero, as under the reference's flush to
+    zero, and is kept as it is."""
+    r = torch.fmod(x, m)
+    return torch.where((torch.abs(r) >= _FLT_MIN) & ((r < 0.0) != (m < 0.0)),
+                       r + m, r)
+
+
 def _lane_ids(sample_id, ix):
     """The sample ids of lanes ``ix`` (one id for all lanes stays one)."""
     return sample_id[ix] if sample_id.dim() else sample_id
+
+
+def _particle_phase(particle_lane, lane_mat: LaneMaterial, direction: Vec3,
+                    wi: Vec3, diameter: float, f, pdf=None):
+    """Particle lanes' BSDF toward ``wi``: the Jendersie-d'Eon phase times
+    the albedo (the phase is the bounce pdf too) → (f rgb, pdf)."""
+    pj = je_phase(dot(direction, wi), diameter)
+    f = tuple(torch.where(particle_lane, a * pj, c) for a, c in zip(
+        (lane_mat.albedo_r, lane_mat.albedo_g, lane_mat.albedo_b), f))
+    return f, (None if pdf is None else torch.where(particle_lane, pj, pdf))
 
 
 def _add(rad, thr, f, le, tw, w):
@@ -280,6 +340,53 @@ def _add(rad, thr, f, le, tw, w):
     if tw is not None:
         x = x * tw
     return rad + x * w
+
+
+def _particle_tier(pt, origin: Vec3, direction: Vec3, hit: Hit, active,
+                   prev_delta, depth: int, pixel_id, sample_id, max_depth: int):
+    """The particle field's walk of one depth → (particle_lane: the lanes
+    whose nearest hit is a particle, the particle hit distance [N])."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    p_gate = active if depth == 0 else (active & prev_delta)
+    # one time per sample; the depth index max_depth never meets the
+    # per-depth PARTICLE_PHASE draws of the bounce
+    t_cam = random_1d(RandomTarget.PARTICLE_PHASE, pixel_id, sample_id,
+                      max_depth)
+    t_cur = torch.where(hit.valid, hit.t, 1e7)
+    seg_o = Vec3(origin.x + pt.motion[0] * t_cam,
+                 origin.y + pt.motion[1] * t_cam,
+                 origin.z + pt.motion[2] * t_cam)
+    scale = pt.scale
+    t_base = torch.zeros(n, dtype=torch.float32, device=dev)
+    p_t = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
+    p_found = torch.zeros(n, dtype=torch.bool, device=dev)
+    hop_eps = float(np.float32(1e-4) * np.float32(scale))
+
+    def exit_dist(wc, dc):
+        """Distance to the tile's face along one axis."""
+        flat = torch.abs(dc) < 1e-9
+        tgt = torch.where(dc > 0.0, scale, 0.0)
+        return torch.where(flat, 1e30, (tgt - wc) / torch.where(flat, 1e-9, dc))
+
+    for _seg in range(3):
+        wrapped = Vec3(floor_mod(seg_o.x, scale), floor_mod(seg_o.y, scale),
+                       floor_mod(seg_o.z, scale))
+        t_exit = torch.minimum(
+            exit_dist(wrapped.x, direction.x),
+            torch.minimum(exit_dist(wrapped.y, direction.y),
+                          exit_dist(wrapped.z, direction.z)))
+        t_exit = torch.clamp(t_exit, min=0.0)
+        seg_act = p_gate & ~p_found & (t_base < t_cur)
+        h_s = trace_closest(pt.bvh, wrapped, direction, active=seg_act)
+        ok = seg_act & h_s.valid & (h_s.t <= t_exit + hop_eps)
+        p_t = torch.where(ok, t_base + h_s.t, p_t)
+        p_found = p_found | ok
+        adv = t_exit + hop_eps
+        seg_o = Vec3(seg_o.x + direction.x * adv, seg_o.y + direction.y * adv,
+                     seg_o.z + direction.z * adv)
+        t_base = t_base + adv
+    return p_gate & p_found & (p_t < t_cur), p_t
 
 
 def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
@@ -311,15 +418,20 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                                     dtype=torch.int64, device=dev)
     bn = blue_base(pixel_x, pixel_y) if config.blue_noise else None
 
-    origin, direction = generate_camera_rays(
-        cam, config.width, config.height, pixel_x, pixel_y, pixel_id,
-        sample_id, bn=bn)
-
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     false = torch.zeros(n, dtype=torch.bool, device=dev)
     rad_r, rad_g, rad_b = zeros, zeros, zeros
     thr_r, thr_g, thr_b = ones, ones, ones
+    if config.use_physical_camera and cam.phys is not None:
+        # the lens stack's throughput (vignetting, spectral weights)
+        origin, direction, (thr_r, thr_g, thr_b) = generate_physical_camera_rays(
+            cam, cam.phys, config.width, config.height, pixel_x, pixel_y,
+            pixel_id, sample_id)
+    else:
+        origin, direction = generate_camera_rays(
+            cam, config.width, config.height, pixel_x, pixel_y, pixel_id,
+            sample_id, bn=bn)
     active = torch.ones(n, dtype=torch.bool, device=dev)
     rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
     prev_pdf = zeros
@@ -340,10 +452,33 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     # belongs to the caustic strategy
     ocean_exit = false
     gbuffer = None
+    # the wavefront sort permutes lanes between depths; orig_lane
+    # unscrambles the radiance at the end
+    sort = config.sort_wavefront
+    orig_lane = torch.arange(n, device=dev) if sort else None
 
     sun_radiance = sun_solid_angle_radiance(sky)  # f32 [3]
-    sun_rad3 = (sun_radiance[0], sun_radiance[1], sun_radiance[2])
     sun_v = sun_dir_vec(sky)
+    spectral = config.spectral
+    if spectral:
+        # three hero wavelengths in the channel slots; spec3 uplifts an RGB
+        # quantity to each slot's wavelength (it reads lam3 when called, so
+        # after a sort the permuted one). The sun's spectrum is evaluated
+        # once and, as in the reference, not permuted by the sort.
+        u_lam = random_1d(RandomTarget.WAVELENGTH, pixel_id, sample_id, 0,
+                          bn=bn)
+        lam3, lam_pdf3 = sample_hero_wavelengths(u_lam)
+
+        def spec3(r, g, b):
+            return tuple(uplift(r, g, b, lam) for lam in lam3)
+
+        sun_rad3 = sun_radiance_spectral(sky, lam3)
+        collapsed = false
+    else:
+        def spec3(r, g, b):
+            return r, g, b
+
+        sun_rad3 = (sun_radiance[0], sun_radiance[1], sun_radiance[2])
     use_rows = geo.material_id.shape[0] > SMALL_TABLE_SLOTS
     sun_up = sky.sun_dir[1] > -0.1  # 0-d bool
     sky_has_sun = int(sky.mode) != 2
@@ -351,6 +486,17 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     # fog term of the reference is an identity and is skipped
     fog_on = fog.on
     water_on = water.active  # Jerlov absorption (identity without water)
+
+    def water_tr(o, d, dist, with_scatter=False):
+        """The water transmittance of segments, in the slots' wavelengths:
+        None without water (the identity), except under spectral rendering,
+        where the reference uplifts its transmittance of 1."""
+        if water_on:
+            return spec3(*water_transmittance(water, o, d, dist,
+                                              with_scatter=with_scatter))
+        if spectral:
+            return spec3(ones, ones, ones)
+        return None, None, None
     water_scatter = config.water_scatter
     vol_on = fog_on or water_scatter  # volume collisions possible
     vol_water = None
@@ -378,6 +524,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     for depth in range(config.max_depth):
         rays_traced = rays_traced + active.to(torch.float32).sum()
         hit = trace_closest(geo.bvh, origin, direction, active=active)
+        ocean_lane = particle_lane = None
 
         # ---- the analytic ocean: the heightfield march up to the walk's
         # hit, the nearer surface wins ----
@@ -389,6 +536,22 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                       slot=torch.where(ocean_lane, 0, hit.slot),
                       u=torch.where(ocean_lane, 0.0, hit.u),
                       v=torch.where(ocean_lane, 0.0, hit.v))
+
+        # ---- the tiled particle field, on delta paths: wrap each lane's
+        # origin (plus the sample's motion offset) into the tile and walk
+        # the particle BVH (kernel B) up to the tile exit, then hop the
+        # boundary; up to 3 segments. A lone tile goes blind where the
+        # wrapped origin sits on a face the ray leaves through. ----
+        if config.use_particles:
+            particle_lane, p_t = _particle_tier(
+                scene.particles, origin, direction, hit, active, prev_delta,
+                depth, pixel_id, sample_id, config.max_depth)
+            hit = Hit(t=torch.where(particle_lane, p_t, hit.t),
+                      slot=torch.where(particle_lane, 0, hit.slot),
+                      u=torch.where(particle_lane, 0.0, hit.u),
+                      v=torch.where(particle_lane, 0.0, hit.v))
+            if config.analytic_ocean:
+                ocean_lane = ocean_lane & ~particle_lane
         hit_valid = hit.valid
 
         # ---- volume collisions (analog tracking): fog, and water composed
@@ -418,8 +581,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             seg_len = t_media
 
         # ---- Jerlov absorption along the segment ----
-        if water_on:
-            twr, twg, twb = water_transmittance(water, origin, direction, seg_len)
+        twr, twg, twb = water_tr(origin, direction, seg_len)
+        if twr is not None:
             thr_r, thr_g, thr_b = thr_r * twr, thr_g * twg, thr_b * twb
 
         # ---- aerial perspective on segments that end on geometry or fog ----
@@ -427,6 +590,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             ends_here = active & (hit_valid | collided) if vol_on else hit_lane
             (atr_r, atr_g, atr_b), (ain_r, ain_g, ain_b) = aerial_fetch(
                 sky, direction, seg_len * 1e-3)  # world m → km
+            ain_r, ain_g, ain_b = spec3(ain_r, ain_g, ain_b)
+            atr_r, atr_g, atr_b = spec3(atr_r, atr_g, atr_b)
             on = ends_here.to(torch.float32)
             rad_r = rad_r + thr_r * ain_r * on
             rad_g = rad_g + thr_g * ain_g * on
@@ -483,8 +648,9 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             )
             nee_sel_pdf = srow[SHP_SEL_PDF].view(torch.float32)
             nee_area = srow[SHP_AREA].view(torch.float32)
-            if use_tex:
+            if use_tex or spectral:  # (spectral: the Abbe number)
                 arow = gather_packed_planar(scene.shade_aux, slot, SHA_COLS)
+            if use_tex:
                 u0_, v0_ = unpack_f16_pair(arow[SHA_UV0])
                 u1_, v1_ = unpack_f16_pair(arow[SHA_UV1])
                 u2_, v2_ = unpack_f16_pair(arow[SHA_UV2])
@@ -540,6 +706,32 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             em_b = torch.where(ocean_lane, 0.0, em_b)
             if use_tex:
                 tex_id = torch.where(ocean_lane, -1, tex_id)
+        if config.use_particles:
+            # particle lanes scatter by the phase function: the normal only
+            # faces the ray, so that the front-face and cosine guards pass
+            p_n = Vec3(-direction.x, -direction.y, -direction.z)
+            alb = scene.particles.albedo
+            mat_id = torch.where(particle_lane, config.particle_mat_id, mat_id)
+            mat_flags = torch.where(particle_lane, 0, mat_flags)
+            ns = vwhere(particle_lane, p_n, ns)
+            ng = vwhere(particle_lane, p_n, ng)
+            ng_raw = vwhere(particle_lane, p_n, ng_raw)
+            lane_mat = LaneMaterial(
+                albedo_r=torch.where(particle_lane, alb[0], lane_mat.albedo_r),
+                albedo_g=torch.where(particle_lane, alb[1], lane_mat.albedo_g),
+                albedo_b=torch.where(particle_lane, alb[2], lane_mat.albedo_b),
+                roughness=torch.where(particle_lane, 1.0, lane_mat.roughness),
+                metallic=torch.where(particle_lane, 0.0, lane_mat.metallic),
+                ior=torch.where(particle_lane, 1.0, lane_mat.ior),
+                translucent=lane_mat.translucent & ~particle_lane,
+                opacity=torch.where(particle_lane, 1.0, lane_mat.opacity),
+                thin_walled=lane_mat.thin_walled & ~particle_lane,
+            )
+            em_r = torch.where(particle_lane, 0.0, em_r)
+            em_g = torch.where(particle_lane, 0.0, em_g)
+            em_b = torch.where(particle_lane, 0.0, em_b)
+            if use_tex:
+                tex_id = torch.where(particle_lane, -1, tex_id)
         if use_tex:
             u0, v0 = uvs
             w_b = 1.0 - hit.u - hit.v
@@ -568,11 +760,13 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     metal_tex = mats.metallic_tex[mat_id]
                     normal_tex = mats.normal_tex[mat_id]
                     lum_tex = mats.luminance_tex[mat_id]
-                if config.analytic_ocean:  # the ocean surface is untextured
-                    rough_tex = torch.where(ocean_lane, -1, rough_tex)
-                    metal_tex = torch.where(ocean_lane, -1, metal_tex)
-                    normal_tex = torch.where(ocean_lane, -1, normal_tex)
-                    lum_tex = torch.where(ocean_lane, -1, lum_tex)
+                # the ocean surface and the particles are untextured
+                for lane in (ocean_lane, particle_lane):
+                    if lane is not None:
+                        rough_tex = torch.where(lane, -1, rough_tex)
+                        metal_tex = torch.where(lane, -1, metal_tex)
+                        normal_tex = torch.where(lane, -1, normal_tex)
+                        lum_tex = torch.where(lane, -1, lum_tex)
                 rr_, _, _, _ = sample_atlas(scene.textures, rough_tex, uu, vv,
                                             lod=lod, trilinear=False)
                 mm_, _, _, _ = sample_atlas(scene.textures, metal_tex, uu, vv,
@@ -599,6 +793,23 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     e2v = vgather(geo.bvh.tri_e2, sl)
                 ns = _normal_mapped(ns, u0, v0, e1v, e2v, nx_, ny_, nz_,
                                     normal_tex)
+        # ---- spectral ingestion: albedo and emission to the slots'
+        # wavelengths; the dielectric IOR dispersed at the hero's ----
+        if spectral:
+            if use_rows:
+                _, abbe_lane = unpack_f16_pair(arow[SHA_TEX_L_ABBE])
+            else:
+                abbe_lane = mats.abbe[mat_id]
+            if config.analytic_ocean:
+                abbe_lane = torch.where(ocean_lane, 0.0, abbe_lane)
+            if config.use_particles:
+                abbe_lane = torch.where(particle_lane, 0.0, abbe_lane)
+            a0, a1, a2 = spec3(lane_mat.albedo_r, lane_mat.albedo_g,
+                               lane_mat.albedo_b)
+            lane_mat = lane_mat._replace(
+                albedo_r=a0, albedo_g=a1, albedo_b=a2,
+                ior=cauchy_ior(lane_mat.ior, lam3[0], abbe_lane))
+            em_r, em_g, em_b = spec3(em_r, em_g, em_b)
         wo = -direction
         if depth == 0 and with_gbuffer:
             if use_rows:  # mat_id u16 | (instance_id + 1) u16
@@ -607,6 +818,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 inst0 = geo.instance_id[sl]
             if config.analytic_ocean:
                 inst0 = torch.where(ocean_lane, OCEAN_INSTANCE_ID, inst0)
+            if config.use_particles:
+                inst0 = torch.where(particle_lane, PARTICLES_INSTANCE_ID, inst0)
             gbuffer = GBufferMeta(
                 depth=torch.where(hit_lane, hit.t, MISS_DIST),
                 instance_id=torch.where(hit_lane, inst0.to(torch.int32), -1),
@@ -617,6 +830,9 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                                  hit_pos.z - cam.pos[2]], dim=-1),
                     0.0),
             )
+        if depth == 0 and config.shading_mode != 0:
+            return (_debug_shade(config, scene, hit, hit_lane, slot, mat_id,
+                                 ns), gbuffer, rays_traced)
 
         # ---- stochastic alpha test: a cutout surface exists with
         # probability opacity; pass-through lanes go straight on ----
@@ -680,6 +896,10 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             cand1_ok = sun_nee_on & (vol_lane | (dot(sun_dir_s, ns) > 0.0))
         else:
             cand1_ok = sun_nee_on & (dot(sun_dir_s, ns) > 0.0)
+        if config.use_particles:
+            (fs_r, fs_g, fs_b), pdf_b_sun = _particle_phase(
+                particle_lane, lane_mat, direction, sun_dir_s,
+                config.particle_diameter, (fs_r, fs_g, fs_b), pdf_b_sun)
         pdf_sun = _INV_SUN_SOLID_ANGLE
         phat1 = _lum(fs_r, fs_g, fs_b)
         if config.sun_ris:
@@ -688,6 +908,8 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             sun2_on = (sun_nee_on & ~lane_mat.translucent & ~is_delta2 & ~trans2)
             if vol_on:
                 sun2_on = sun2_on & ~vol_lane
+            if config.use_particles:  # phase lanes take the cone candidate
+                sun2_on = sun2_on & ~particle_lane
             cand2_ok = (sun2_on & (dot(wi_b2, sun_v) >= SUN_COS_RADIUS)
                         & (dot(wi_b2, ns) > 0.0))
             (f2_r, f2_g, f2_b), pdf_eval2 = frame_eval(
@@ -732,9 +954,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 scene.clouds, vgather(shadow_origin, cix), sun_v,
                 layers=config.cloud_layers)
             t_sun = t_cloud if t_sun is None else t_sun * t_cloud
-        tws = (water_transmittance(water, shadow_origin, sun_dir_w, 1e7,
-                                   with_scatter=water_scatter)
-               if water_on else (None, None, None))
+        tws = water_tr(shadow_origin, sun_dir_w, 1e7, water_scatter)
 
         # ---- NEE 2: emissive triangles, RIS over K candidates ----
         k_ris = max(int(config.ris_candidates), 1)
@@ -817,6 +1037,10 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             fl_g = torch.where(vol_lane, phase_l, fl_g)
             fl_b = torch.where(vol_lane, phase_l, fl_b)
             pdf_b_l = torch.where(vol_lane, phase_l, pdf_b_l)
+        if config.use_particles:
+            (fl_r, fl_g, fl_b), pdf_b_l = _particle_phase(
+                particle_lane, lane_mat, direction, sel_dir,
+                config.particle_diameter, (fl_r, fl_g, fl_b), pdf_b_l)
         sel_w_mis = mis_balance(sel_pdf_sa, pdf_b_l)
         le_r, le_g, le_b = sel_le
         l_dir, dist = sel_dir, sel_dist
@@ -862,15 +1086,19 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 side_ok = vol_lane | (dot(env_dir, ns) > 0.0)
             else:
                 side_ok = dot(env_dir, ns) > 0.0
+            if config.use_particles:
+                (fe_r, fe_g, fe_b), pdf_b_env = _particle_phase(
+                    particle_lane, lane_mat, direction, env_dir,
+                    config.particle_diameter, (fe_r, fe_g, fe_b), pdf_b_env)
             env_candidate = (nee_lane & (pdf_env > 1e-12)
                              & (sky.env_nee_total > 0.0) & side_ok)
             rays_traced = rays_traced + env_candidate.to(torch.float32).sum()
-            env_le = sky_radiance(sky, env_dir, include_sun=False)
+            env_le = (Vec3(*sky_radiance_spectral(sky, env_dir, lam3))
+                      if spectral else
+                      sky_radiance(sky, env_dir, include_sun=False))
             t_fog_env = (fog_transmittance(fog, shadow_origin, env_dir, 1e7)
                          if fog_on else None)
-            twe = (water_transmittance(water, shadow_origin, env_dir, 1e7,
-                                       with_scatter=water_scatter)
-                   if water_on else (None, None, None))
+            twe = water_tr(shadow_origin, env_dir, 1e7, water_scatter)
             w_mis_env = mis_balance(pdf_env, pdf_b_env)
 
         # ---- NEE 4: sun caustics for underwater vertices, connected on
@@ -951,9 +1179,10 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         l_w = l_w * ris_w
         if cutouts:
             l_w = l_w * trans[n:2 * n]
-        twl = (water_transmittance(water, shadow_origin, l_dir, dist,
-                                   with_scatter=water_scatter)
-               if water_on else (None, None, None))
+        twl = water_tr(shadow_origin, l_dir, dist, water_scatter)
+        # the chosen light's emission to the slots' wavelengths (the
+        # bridges below use it too)
+        le_r, le_g, le_b = spec3(le_r, le_g, le_b)
         direct_lane = light_candidate & ~vol_lane if use_bridges else light_candidate
         if use_bridges and water_scatter:
             # bridges model fog chains; water vertices connect directly
@@ -982,11 +1211,15 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 fc_r = torch.where(vol_lane, phase_c, fc_r)
                 fc_g = torch.where(vol_lane, phase_c, fc_g)
                 fc_b = torch.where(vol_lane, phase_c, fc_b)
+            if config.use_particles:
+                (fc_r, fc_g, fc_b), _ = _particle_phase(
+                    particle_lane, lane_mat, direction, cau_u,
+                    config.particle_diameter, (fc_r, fc_g, fc_b))
             # x→P lies under water: absorption, and the scattering
             # extinction under in-scattering (a shadow-class segment)
             sig = np.float32(water.scatter if water_scatter else 0.0)
-            twc = tuple(torch.exp(-float(np.float32(a) + sig) * cau_dist)
-                        for a in water.absorb)
+            twc = spec3(*(torch.exp(-float(np.float32(a) + sig) * cau_dist)
+                          for a in water.absorb))
             c_w = torch.where(cau_candidate & ~cau_blocked, cau_weight, 0.0)
             rad_r = _add(rad_r, thr_r, fc_r, sun_rad3[0], twc[0], c_w)
             rad_g = _add(rad_g, thr_g, fc_g, sun_rad3[1], twc[1], c_w)
@@ -1044,6 +1277,25 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 torch.where(front_face, medium_push(medium, lane_mat.ior),
                             medium_pop(medium)),
                 medium)
+            if config.use_particles:
+                # particle lanes bounce by JE phase sampling, whose weight
+                # is the albedo (phase / pdf = 1)
+                r_p1 = random_1d(RandomTarget.PARTICLE_PHASE, pixel_id,
+                                 sample_id, depth, bn=bn)
+                r_p2 = random_1d(RandomTarget.VOLUME_PHASE, pixel_id,
+                                 sample_id, depth, bn=bn)
+                r_pc = random_1d(RandomTarget.BSDF_CHOICE, pixel_id,
+                                 sample_id, depth, bn=bn)
+                wi_p = je_sample_direction(direction, config.particle_diameter,
+                                           r_p1, r_p2, r_pc)
+                wi = vwhere(particle_lane, wi_p, wi)
+                wr = torch.where(particle_lane, lane_mat.albedo_r, wr)
+                wg = torch.where(particle_lane, lane_mat.albedo_g, wg)
+                wb = torch.where(particle_lane, lane_mat.albedo_b, wb)
+                pdf = torch.where(particle_lane, je_phase(
+                    dot(direction, wi_p), config.particle_diameter), pdf)
+                is_delta = torch.where(particle_lane, False, is_delta)
+                transmitted = torch.where(particle_lane, False, transmitted)
             if vol_on:
                 # volume lanes bounce by phase sampling: phase / pdf = 1
                 wi_vol = sample_hg_direction(direction, fog.g, pixel_id,
@@ -1066,6 +1318,15 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             thr_r = thr_r * torch.where(active, wr, 1.0)
             thr_g = thr_g * torch.where(active, wg, 1.0)
             thr_b = thr_b * torch.where(active, wb, 1.0)
+            if spectral:
+                # the hero-wavelength collapse at a dispersive refraction:
+                # the other slots would refract elsewhere, so they end and
+                # the hero carries the estimate (x3, the dropped 1/C)
+                disperse = do_trans & (abbe_lane > 0.0) & ~lane_mat.thin_walled
+                thr_r = torch.where(disperse & ~collapsed, thr_r * 3.0, thr_r)
+                thr_g = torch.where(disperse, 0.0, thr_g)
+                thr_b = torch.where(disperse, 0.0, thr_b)
+                collapsed = collapsed | disperse
             off = torch.where(transmitted, -_RAY_EPS, _RAY_EPS)
             origin = vwhere(
                 pass_thru,
@@ -1116,23 +1377,55 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 inv_p = 1.0 / p_continue
                 thr_r, thr_g, thr_b = thr_r * inv_p, thr_g * inv_p, thr_b * inv_p
 
+            # ---- the wavefront sort for the next depth: every lane's
+            # state follows its new place (a stable sort, so lanes of one
+            # key keep their order) ----
+            if sort:
+                perm = torch.argsort(
+                    ray_sort_key(origin, direction, active, geo.bvh.bounds),
+                    stable=True)
+                if sample_id.dim() == 0:
+                    sample_id = sample_id.expand(n)
+                state = [origin, direction, thr_r, thr_g, thr_b, rad_r, rad_g,
+                         rad_b, prev_pdf, prev_delta, active, miss_dir,
+                         miss_thr_r, miss_thr_g, miss_thr_b, miss_sun_weight,
+                         miss_env_weight, ever_missed, pixel_id, sample_id,
+                         orig_lane, medium, prev_sun_nee, prev_sun2,
+                         prev_light_nee, prev_env_nee, ocean_exit,
+                         vol_scattered, bn]
+                if spectral:
+                    state += [collapsed, lam3, lam_pdf3]
+                state = [_permute(x, perm) for x in state]
+                (origin, direction, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
+                 prev_pdf, prev_delta, active, miss_dir, miss_thr_r,
+                 miss_thr_g, miss_thr_b, miss_sun_weight, miss_env_weight,
+                 ever_missed, pixel_id, sample_id, orig_lane, medium,
+                 prev_sun_nee, prev_sun2, prev_light_nee, prev_env_nee,
+                 ocean_exit, vol_scattered, bn) = state[:29]
+                if spectral:
+                    collapsed, lam3, lam_pdf3 = state[29:]
+
     # ---- deferred sky: one evaluation for all recorded misses ----
     safe_dir = vwhere(ever_missed, miss_dir, Vec3.of(0.0, 1.0, 0.0, like=miss_dir))
     in_sun_disc = dot(safe_dir, sun_v) >= SUN_COS_RADIUS
     disc_w = torch.where(in_sun_disc, miss_sun_weight, 0.0)
-    sky_rgb = sky_radiance(sky, safe_dir, include_sun=False)
-    sky_r, sky_g, sky_b = sky_rgb
+    if not spectral or config.use_clouds:
+        sky_rgb = sky_radiance(sky, safe_dir, include_sun=False)
+    sky_r, sky_g, sky_b = (sky_radiance_spectral(sky, safe_dir, lam3)
+                           if spectral else sky_rgb)
     if config.env_nee:
         # the MIS weight against env NEE, one pdf lookup for all misses
         env_w_m = torch.where(
             miss_env_weight < 0.0, 1.0,
             mis_balance(miss_env_weight, env_pdf(sky, safe_dir)))
         sky_r, sky_g, sky_b = sky_r * env_w_m, sky_g * env_w_m, sky_b * env_w_m
-    sky_r = sky_r + sun_radiance[0] * disc_w
-    sky_g = sky_g + sun_radiance[1] * disc_w
-    sky_b = sky_b + sun_radiance[2] * disc_w
+    sky_r = sky_r + sun_rad3[0] * disc_w
+    sky_g = sky_g + sun_rad3[1] * disc_w
+    sky_b = sky_b + sun_rad3[2] * disc_w
     if config.use_clouds:
-        # the cloud march in front of the sky, for the lanes that missed
+        # the cloud march in front of the sky, for the lanes that missed,
+        # in RGB against the RGB sky (clouds are near-grey scatterers); its
+        # inscatter then goes to the slots' wavelengths
         mix = torch.nonzero(ever_missed).flatten()
         (cr_, cg_, cb_), ct_ = cloud_march(
             scene.clouds, vgather(origin, mix), vgather(safe_dir, mix), sun_v,
@@ -1140,6 +1433,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             steps=config.cloud_steps, layers=config.cloud_layers)
         cr, cg, cb, ct = zeros.clone(), zeros.clone(), zeros.clone(), ones.clone()
         cr[mix], cg[mix], cb[mix], ct[mix] = cr_, cg_, cb_, ct_
+        cr, cg, cb = spec3(cr, cg, cb)
         sky_r = cr + sky_r * ct
         sky_g = cg + sky_g * ct
         sky_b = cb + sky_b * ct
@@ -1147,4 +1441,55 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     rad_r = rad_r + miss_thr_r * sky_r * add
     rad_g = rad_g + miss_thr_g * sky_g * add
     rad_b = rad_b + miss_thr_b * sky_b * add
-    return torch.stack([rad_r, rad_g, rad_b], dim=-1), gbuffer, rays_traced
+    if spectral:
+        rad_r, rad_g, rad_b = resolve_to_rgb(rad_r, rad_g, rad_b, lam3,
+                                             lam_pdf3)
+    radiance = torch.stack([rad_r, rad_g, rad_b], dim=-1)
+    if sort:  # back to the original lane order
+        out = torch.empty_like(radiance)
+        out[orig_lane] = radiance
+        radiance = out
+    return radiance, gbuffer, rays_traced
+
+
+def _permute(x, perm):
+    """A lane state (a tensor, a tuple of them, or None) in sorted order."""
+    if x is None:
+        return None
+    if isinstance(x, Vec3):
+        return Vec3(*(c[perm] for c in x))
+    if isinstance(x, tuple):
+        return tuple(c[perm] for c in x)
+    return x[perm]
+
+
+def _debug_shade(config, scene, hit, hit_lane, slot, mat_id, ns: Vec3):
+    """The debug shading modes (ShadingMode 1-5) of the primary hits →
+    radiance [N, 3]."""
+    mats = scene.materials
+    mode = config.shading_mode
+    hl = hit_lane.to(torch.float32)
+    mat_id = mat_id.long()
+    if mode == 1:  # ALBEDO
+        return torch.stack([mats.albedo_r[mat_id] * hl,
+                            mats.albedo_g[mat_id] * hl,
+                            mats.albedo_b[mat_id] * hl], dim=-1)
+    if mode == 2:  # DEPTH, over the wavefront's largest
+        d = torch.where(hit_lane, hit.t, 0.0)
+        d = d / torch.clamp(torch.max(d), min=1e-6)
+        return torch.stack([d, d, d], dim=-1)
+    if mode == 3:  # NORMAL
+        return torch.stack([ns.x * 0.5 + 0.5, ns.y * 0.5 + 0.5,
+                            ns.z * 0.5 + 0.5], dim=-1) * hl[:, None]
+    if mode == 4:  # IDENTIFICATION: the instance id hashed to a colour
+        iid = scene.geo.instance_id[slot.long()].to(torch.int64) & 0xFFFFFFFF
+        h = (iid * 2654435761) & 0xFFFFFFFF
+        return torch.stack([sdiv((h & 0xFF).to(torch.float32), 255.0) * hl,
+                            sdiv(((h >> 8) & 0xFF).to(torch.float32), 255.0) * hl,
+                            sdiv(((h >> 16) & 0xFF).to(torch.float32), 255.0) * hl],
+                           dim=-1)
+    if mode == 5:  # LIGHTS: emissive surfaces highlighted
+        emissive = (mats.flags[mat_id] & MAT_FLAG_EMISSIVE) != 0
+        v = torch.where(hit_lane & emissive, 1.0, torch.where(hit_lane, 0.1, 0.0))
+        return torch.stack([v, v, v], dim=-1)
+    raise ValueError(f"unknown shading mode {mode}")

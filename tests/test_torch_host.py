@@ -13,6 +13,7 @@ its own: synchronous and asynchronous requests with the preview pyramid,
 entities, picking, checkpoints, the benchmark ladder and the CLI's other
 modes."""
 
+import dataclasses
 import os
 import threading
 import time
@@ -197,23 +198,25 @@ def test_host_async_flow_with_preview(tmp_path):
 
 
 def test_host_async_render_error_reaches_caller(tmp_path):
-    """An error on the device worker (here update() refusing an unported
-    feature) is raised by the next poll instead of leaving the caller
-    polling forever; once the scene is fixed, a later poll resumes."""
+    """An error on the device worker (here update() refusing a lamp whose
+    pre-scaled emission overflows the shade row's f16, which the packer
+    refuses where the reference would store inf) is raised by the next poll
+    instead of leaving the caller polling forever; once the scene is
+    fixed, a later poll resumes."""
+    from luminary_tpu_torch.utils.errors import InvalidAPIArgumentError
+
     host = Host(device="cpu", asynchronous=True)
     try:
         host.scene = cornell_scene(16, 16, max_depth=2)
-        s = host.get_settings()
-        s.wavefront_sorting = True
-        host.set_settings(s)
+        lamp = next(m for m in host.scene.materials if m.emission_active)
+        host.set_material(dataclasses.replace(lamp, emission_scale=1e6))
         promise = host.request_output(1)
         t0 = time.monotonic()
-        with pytest.raises(NotImplementedError, match="sort_wavefront"):
+        with pytest.raises(InvalidAPIArgumentError, match="f16 maximum"):
             while time.monotonic() - t0 < 60.0:
                 assert host.try_await_output(promise) == OUTPUT_HANDLE_INVALID
                 time.sleep(0.01)
-        s.wavefront_sorting = False
-        host.set_settings(s)
+        host.set_material(lamp)
         handle = _await(host, promise)
         assert host.get_image(handle).shape == (16, 16, 3)
     finally:

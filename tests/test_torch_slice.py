@@ -4,9 +4,11 @@ nz=6)`` has a wide BVH (>128 slots), packed shade rows (>2048 slots), a light
 tree (>=64 emitters), the DEFAULT sky with aerial perspective, sun RIS and
 RIS K=4.
 
-One module fixture builds the JAX Renderer and renders one sample (the
-expensive part: the JAX pack and first-sample compile take minutes on a
-CPU); every check reuses it:
+One module fixture builds the JAX Renderer (about a minute on a CPU, most
+of it the reference's aerial-perspective bake, whose 64 unrolled march
+steps XLA compiles for ~60 s) and renders one sample with the JAX
+``render_sample`` called without jit, its walks jitted (a jitted compile
+of the whole sample takes another ~50 s); every check reuses it:
 
 (a) the port's own pack equals the JAX tables word for word per slot; the
     baked sky, aerial and env-pdf rows (transcendentals differ between XLA
@@ -33,6 +35,7 @@ from luminary_tpu_torch.render.device_scene import from_jax_arrays, pack_scene
 from luminary_tpu_torch.render.wavefront import RenderConfig, render_sample
 from luminary_tpu_torch.testing import benchmark_scene
 from test_torch_pack import TABLES, _jax_tables, _port_tables, jax_scene_tree, same_words
+from test_torch_textures import jax_render
 
 torch.set_num_threads(1)
 
@@ -47,9 +50,12 @@ NOT_COMPARED = ("env_alias_rows",)
 def fx():
     scene_j = j_benchmark_scene(W, H, max_depth=2, nx=6, nz=6)
     r = JRenderer(scene_j, chunk=1 << 20)
-    r.render_samples(1)
+    rad, gbuffer, rays = jax_render(r.device_scene, r.device_camera, r.config,
+                                    np.asarray(r._px), np.asarray(r._py),
+                                    np.uint32(0))
     n = W * H
-    ref_img = np.asarray(r.accum.radiance)[:n]
+    # the Renderer's accumulation of one sample: the firefly clamp
+    ref_img = np.minimum(np.asarray(rad), 1e6)[:n]
     tree = jax_scene_tree(r.device_scene, r.device_camera)
     own = pack_scene(benchmark_scene(W, H, max_depth=2, nx=6, nz=6), "cpu")
     carried, cam = from_jax_arrays(tree, "cpu")
@@ -60,8 +66,8 @@ def fx():
                        aerial=c.aerial, sun_ris=c.sun_ris)
     return dict(r=r, ref_img=ref_img, own=own, carried=carried, cam=cam,
                 cfg=cfg, px=torch.as_tensor(np.array(r._px)),
-                py=torch.as_tensor(np.array(r._py)),
-                rays=r._last_rays_per_sample)
+                py=torch.as_tensor(np.array(r._py)), rays=float(rays),
+                gbuffer=gbuffer)
 
 
 def test_fixture_takes_every_main_path_branch(fx):
@@ -169,7 +175,7 @@ def test_gbuffer_matches_reference(fx, pack):
     material on every lane, depth and hit position within f32 rounding."""
     _rad, g, _rays = render_sample(fx[pack], fx["cam"], fx["cfg"], fx["px"],
                                    fx["py"], 0)
-    ref = fx["r"].gbuffer
+    ref = fx["gbuffer"]
     n = W * H
     np.testing.assert_array_equal(g.instance_id.numpy()[:n],
                                   np.asarray(ref.instance_id)[:n])
