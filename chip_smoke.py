@@ -18,16 +18,24 @@ Phases, one or more lines each; any failure exits non-zero:
    plain time and, for kernel A and unplanar, a library yardstick and
    graph-replay device times beside the eager ones. With
    ``--compare DIR`` (a directory holding an earlier version's
-   ``traverse_wide.cu`` and ``light_tree_descend.cu``), that build is timed
-   in turns with the port's kernels B and C on the same inputs (this,
-   earlier, earlier, this), with its ptxas figures, its slab and triangle
-   test counts and, for kernel B, where it differs from the plain walk;
+   ``traverse_wide.cu``, ``light_tree_descend.cu`` or ``gather_sum.cu``),
+   that build is timed in turns with the port's kernels B and C on the same
+   inputs (this, earlier, earlier, this), with its ptxas figures, its slab
+   and triangle test counts and, for kernel B, where it differs from the
+   plain walk (kernel E's turns are in 3b);
 3b. prototype kernels: kernel D (row gather; the fill-NaN, clamp and
    zero-with-bf16 index rules), kernel E (ordered row sum and dependent
    fetch chain), kernel F (slab body, both fetch modes) and kernel T
    (transpose) against their plain versions at the shapes of the Pallas
    prototypes in ``tools/``, with time, bound, plain time and a library
-   yardstick where one exists; then the port's three tool entry points
+   yardstick where one exists, and the launch floor (an empty kernel,
+   ``csrc/launch_floor.cu``, timed the same way). Kernel E is also held bit
+   for bit at the contract's other shapes (K and steps 0, 1 and across
+   stages, 4 to 128 columns, chains that cycle, a table too large for its
+   shared-memory tables, NaN in column 0), beside the floor of its ordered
+   adds (4 cycles each at the SM clock ``nvidia-smi`` reads) and, with an
+   earlier ``gather_sum.cu`` in ``--compare``'s DIR, in turns with that
+   build, ptxas for both; then the port's three tool entry points
    (``luminary_tpu_torch.tools``: ``proto_gather all``, ``proto_gather2
    all``, ``microbench_colext`` main and main2) on the card, with the launch
    counts of D, E, F and T from 0;
@@ -84,8 +92,8 @@ Phases, one or more lines each; any failure exits non-zero:
    < 1e-4): RMSE/scale over all pixels reported, at most 2 pixels with
    another decision (over 1e-2 of the scale apart), the rest within
    RMSE/scale 1e-3 with clouds off, 1e-2 with clouds on; ``clouds_32`` at
-   64 spp against its golden (the full-image figure reported; RMSE/scale <
-   0.02 less at most 24 pixels more than 1e-2 of the scale apart, as
+   64 spp against its golden (RMSE/scale < 0.02 over the whole image, at
+   most 5 pixels more than 1e-2 of the scale apart, as
    ``tests/test_torch_golden_sky.py`` holds it) and against the plain CPU
    path (at most 8 pixels another decision, the rest within 1e-2);
 10. optics at full width, ``optics_scene(1920, 1080, 4)`` (the bench field
@@ -122,6 +130,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+ADD_CYCLES = 4              # latency of a dependent fp32 add (kernel E's floor)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 # operations of one child slab test and one Moller-Trumbore test, as written
 # in csrc/traverse_wide.cu (adds, multiplies, min/max, compares, 1 divide)
@@ -195,15 +204,21 @@ def same_bits(a, b) -> bool:
         a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
 
 
-def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
+def prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts=(),
+                      with_lib=None, this_ptxas=None, alt_ptxas=None) -> list:
     """Kernels D, E (sum and chain), F and T against their plain versions
     at the prototypes' shapes, each with its time, bound, plain time and,
-    where one PyTorch call computes the same function, that call's time.
-    Returns their entries of the kernels line (launches set by the caller)."""
+    where one PyTorch call computes the same function, that call's time;
+    kernel E also at the contract's other shapes, beside the floor of its
+    ordered adds and, with an earlier build of it among ``alts``, in turns
+    with that build. ``floor_lib`` holds the empty kernel whose time is the
+    launch floor. Returns their entries of the kernels line (launches set by
+    the caller)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from luminary_tpu_torch import kernels
     from luminary_tpu_torch.tools import launch_ms
     from luminary_tpu_torch.tools import microbench_colext as CX
     from luminary_tpu_torch.tools import proto_gather as PG
@@ -266,13 +281,64 @@ def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         shape=d_rows[0]["case"], cases=d_rows))
 
+    # the card's floor for one launch: an empty kernel, timed like the rest
+    floor_fn = floor_lib.lum_launch_floor
+    floor_fn.argtypes, floor_fn.restype = [ctypes.c_void_p], ctypes.c_int
+    floor_ms = dev_ms(lambda: kernels.check(floor_fn(kernels.stream_handle(dev)),
+                                            "launch_floor"))
+    log("[launch floor] an empty kernel: %.4f ms a launch (device time from "
+        "CUDA-graph replays) | %s" % (floor_ms, smi))
+    d_rows[2]["launch_floor_ms"] = floor_ms
+    out[-1]["launch_floor_ms"] = floor_ms
+
+    # kernel E against an earlier build of csrc/gather_sum.cu (--compare), in
+    # turns (this, earlier, earlier, this) on the same inputs
+    e_alts = [(label, lib) for name, label, lib in alts if name == "gather_sum"]
+
+    def e_turns(fn, check):
+        res = {}
+        for label, lib in e_alts:
+            with_lib("gather_sum", lib, check)
+            t = {"this": [], label: []}
+            for who in ("this", label, label, "this"):
+                t[who].append(dev_ms(fn) if who == "this" else
+                              with_lib("gather_sum", lib, lambda: dev_ms(fn)))
+            res[label] = dict(ms=sum(t[label]) / 2, turns=t[label],
+                              this_ms=sum(t["this"]) / 2, this_turns=t["this"],
+                              ptxas=alt_ptxas.get("gather_sum " + label, {}))
+            log("[compare %s] %s: %.4f ms, this: %.4f ms (turns %s / %s); "
+                "ptxas this %s; %s %s | %s" % (
+                    fn.__name__, label, res[label]["ms"], res[label]["this_ms"],
+                    ", ".join("%.4f" % x for x in t[label]),
+                    ", ".join("%.4f" % x for x in t["this"]),
+                    {k: v for k, v in this_ptxas.items() if fn.__name__ in k},
+                    label, {k: v for k, v in res[label]["ptxas"].items()
+                            if fn.__name__ in k}, smi))
+        return res
+
+    def same_as(fn, want):
+        def check():
+            assert torch.equal(fn(), want), "the earlier %s differs" % fn.__name__
+        return check
+
+    def clock_mhz():
+        q = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, check=True, timeout=60).stdout
+        return [float(v) for v in q.strip().splitlines()[0].split(",")]
+
     # kernel E, gather_sum: E2's 2048 fetches, summed in order
     idx = rand_idx(PG.K)
     got = PG.gather_sum(tab, idx)
     ref = PG.gather_sum_plain(tab, idx)
     assert torch.equal(got, ref)
-    ms = dev_ms(lambda: PG.gather_sum(tab, idx))
-    call_ms = cuda_ms(lambda: PG.gather_sum(tab, idx), iters=20)
+
+    def gather_sum():
+        return PG.gather_sum(tab, idx)
+
+    ms = dev_ms(gather_sum)
+    sm_mhz, max_mhz = clock_mhz()
+    call_ms = cuda_ms(gather_sum, iters=20)
     plain_ms = cuda_ms(lambda: PG.gather_sum_plain(tab, idx), iters=3)
     idx_c = idx.long()
     idx_c = torch.where(idx_c < 0, idx_c + rows, idx_c).clamp(0, rows - 1)[None]
@@ -280,45 +346,93 @@ def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
     lib_err = float((F.embedding_bag(idx_c, tab, mode="sum") - ref).abs().max())
     used = torch.unique(idx_c).numel()
     b_ms, b_by = bound(used * cols * 4 + PG.K * 4 + cols * 4, PG.K * cols)
+    # the ordered sum's own floor: K dependent float adds of ~4 cycles
+    order_ms = PG.K * ADD_CYCLES / (sm_mhz * 1e3)
+    cmp_sum = e_turns(gather_sum, same_as(gather_sum, ref))
     log("[kernel E gather_sum] %d fetches x %d: exact; %.4f ms a launch (%.1f "
         "ns/row; one eager call %.4f ms), plain %.3f ms, library %.4f ms "
         "(embedding_bag sum, max abs diff %.3g: its own order), bound %.5f ms "
-        "(%s; latency sets the time) | %s" % (
+        "(%s), ordered-add floor %.4f ms (%d adds x %d cycles at the %.0f MHz "
+        "SM clock read after it; max %.0f MHz), launch floor %.4f ms | %s" % (
             PG.K, cols, ms, ms / PG.K * 1e6, call_ms, plain_ms, lib_ms, lib_err,
-            b_ms, b_by, smi))
+            b_ms, b_by, order_ms, PG.K, ADD_CYCLES, sm_mhz, max_mhz, floor_ms, smi))
     out.append(dict(
         name="gather_sum", route="cuda", source="luminary_tpu_torch/csrc/gather_sum.cu",
         replaces="tools/proto_pallas_gather.py:112", max_abs_err=0.0, ms=ms,
         call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, ns_per_row=ms / PG.K * 1e6))
+        library_ms=lib_ms, ns_per_row=ms / PG.K * 1e6, order_floor_ms=order_ms,
+        sm_clock_mhz=sm_mhz, max_sm_clock_mhz=max_mhz, launch_floor_ms=floor_ms,
+        compare=cmp_sum))
 
-    # kernel E, gather_chain: E2c's 4096 dependent fetches on a 2 * randn
-    # table (the row[1] > 2 branch taken) from a negative seed
+    # kernel E, gather_chain: E2c's 4096 fetches on a 2 * randn table (the
+    # row[1] > 2 branch taken) from a negative seed
     tab2_np = (2.0 * rng.standard_normal((rows, cols))).astype(np.float32)
     tab2 = torch.as_tensor(tab2_np).to(dev)
     seed = -0.0123
     steps = PG2.ROWS_PER_CALL
     got = PG2.gather_chain(tab2, seed, steps)
-    ref = PG2.gather_chain_plain(tab2, seed, steps)
-    assert torch.equal(got, ref)
+    ref2 = PG2.gather_chain_plain(tab2, seed, steps)
+    assert torch.equal(got, ref2)
     path = PG2.chain_rows(tab2_np, seed, steps)
     branch = int((tab2_np[path, 1] > 2).sum())
     assert branch > 0
     seed_t = torch.tensor([seed], dtype=torch.float32, device=dev)
-    ms = dev_ms(lambda: PG2.gather_chain(tab2, seed_t, steps))
+
+    def gather_chain():
+        return PG2.gather_chain(tab2, seed_t, steps)
+
+    ms = dev_ms(gather_chain)
+    sm_mhz, max_mhz = clock_mhz()
     plain_ms = cuda_ms(lambda: PG2.gather_chain_plain(tab2, seed_t, steps), iters=2,
                        warmup=1)
     b_ms, b_by = bound(np.unique(path).size * cols * 4 + 4 + cols * 4,
                        steps * (cols + 6))
-    log("[kernel E gather_chain] %d dependent fetches x %d (%d through the "
-        "row[1] > 2 branch): exact; %.4f ms (%.1f ns/row), plain %.1f ms, bound "
-        "%.5f ms (%s; a chain of dependent loads: latency sets the time) | %s" % (
-            steps, cols, branch, ms, ms / steps * 1e6, plain_ms, b_ms, b_by, smi))
+    order_ms = steps * ADD_CYCLES / (sm_mhz * 1e3)
+    cmp_chain = e_turns(gather_chain, same_as(gather_chain, ref2))
+    log("[kernel E gather_chain] %d steps x %d (%d through the row[1] > 2 "
+        "branch): exact; %.4f ms (%.1f ns/step), plain %.1f ms, bound %.5f ms "
+        "(%s), ordered-add floor %.4f ms (%d adds x %d cycles at %.0f MHz; max "
+        "%.0f MHz), launch floor %.4f ms | %s" % (
+            steps, cols, branch, ms, ms / steps * 1e6, plain_ms, b_ms, b_by,
+            order_ms, steps, ADD_CYCLES, sm_mhz, max_mhz, floor_ms, smi))
     out.append(dict(
         name="gather_chain", route="cuda", source="luminary_tpu_torch/csrc/gather_sum.cu",
         replaces="tools/proto_pallas_gather2.py:64", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ns_per_row=ms / steps * 1e6))
+        ns_per_row=ms / steps * 1e6, order_floor_ms=order_ms, sm_clock_mhz=sm_mhz,
+        max_sm_clock_mhz=max_mhz, launch_floor_ms=floor_ms, compare=cmp_chain))
+
+    # kernel E at the contract's other shapes, each bit for bit: K inside a
+    # stage, across stages, 0 and 1; 4, 12 and 64 columns; indices negative
+    # and out of range; chains of 0 and 1 steps, round a 40-row cycle, longer
+    # than one listing pass, on a table too large for the shared-memory
+    # tables (walked instead), and with NaN in column 0 of every 7th row
+    extra = []
+    for c_x, k in ((12, 77), (4, 5), (128, 1), (64, 0), (128, 3000)):
+        t_x = torch.as_tensor(rng.standard_normal((rows, c_x)).astype(np.float32)).to(dev)
+        i_x = torch.as_tensor(rng.integers(-2 * rows, 2 * rows, k).astype(np.int32)).to(dev)
+        assert torch.equal(PG.gather_sum(t_x, i_x), PG.gather_sum_plain(t_x, i_x)), (c_x, k)
+        extra.append("gather_sum %d cols K %d" % (c_x, k))
+    for s_x, c_x, n_x, seed_x, nan in ((rows, 12, 0, seed, False),
+                                       (rows, 12, 1, seed, False),
+                                       (40, 12, 5000, seed, False),
+                                       (40, 4, 30, 0.0004567, False),
+                                       (rows, 128, 10000, 0.0004567, False),
+                                       (40000, 12, 300, seed, False),
+                                       (rows, 12, 500, 0.0004567, True)):
+        t_np = (2.0 * rng.standard_normal((s_x, c_x))).astype(np.float32)
+        if nan:
+            t_np[::7, 0] = np.nan
+        t_x = torch.as_tensor(t_np).to(dev)
+        got_x = PG2.gather_chain(t_x, seed_x, n_x)
+        ref_x = PG2.gather_chain_plain(t_x, seed_x, n_x)
+        assert (same_bits(got_x, ref_x) if nan else torch.equal(got_x, ref_x)), (
+            s_x, c_x, n_x, nan)
+        extra.append("gather_chain S %d, %d cols, %d steps%s" % (
+            s_x, c_x, n_x, ", NaN in column 0" if nan else ""))
+    log("[kernel E extra shapes] equal to the plain versions bit for bit: %s"
+        % "; ".join(extra))
+    out[-1]["extra_shapes"] = out[-2]["extra_shapes"] = extra
 
     # kernel F: E5's 1024 packets, rows resident and fetched
     g = PG2.SLAB_G
@@ -356,7 +470,7 @@ def prototype_kernels(dev, cuda_ms, bound, smi) -> list:
         replaces="tools/proto_pallas_gather2.py:126", max_abs_err=0.0,
         **{k: f_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
-        shape="fetch none", cases=f_rows))
+        shape="fetch none", cases=f_rows, launch_floor_ms=floor_ms))
 
     # kernel T: colext's [2^21, 48] gather output to planar [48, 2^21]
     x = torch.randn((CX.N, 48), generator=torch.Generator(device=dev).manual_seed(5),
@@ -453,14 +567,188 @@ def kernel_a_case(label, table, idx, n_cols, s, dev, cuda_ms, bound, smi) -> dic
                 bound_by=b_by)
 
 
+def cold_launch_ms(fn, dev, reps=20) -> float:
+    """Device milliseconds of one ``fn()`` with its operands out of L2: before
+    each call a 1 GB write evicts the 50 MB L2, and CUDA events bracket the
+    call alone (the write keeps the card busy while the host enqueues it)."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.int32, device=dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for s, e in ev:
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize(dev)
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+# csrc/shading.cu's kernels: (the public wrapper, the bytes a lane reads and
+# writes, fp32 operations a lane counted from the source; glibc's sine and
+# cosine count ~25 float64 operations each, as 2 fp32 ones)
+SHADING = {
+    "camera_ray": (44, 90),
+    "ray_point": (40, 6),
+    "make_frame": (116, 70),
+    "frame_eval": (113, 160),
+    "material_sample": (143, 520),
+}
+
+
+def shading_kernels(dev, smi, r, bound, cuda_ms) -> list:
+    """csrc/shading.cu at the main path's width (the tree-1080p renderer's
+    lanes): each kernel through its wrapper on the card against its plain
+    PyTorch version run on the CPU on the same inputs (equal values: any NaN
+    equals any NaN, and +0 equals -0), timed out of L2, its plain version
+    timed on the card (whose fused multiply-adds and sines go through fma32
+    and libm_sincos there)."""
+    import numpy as np
+    import torch
+
+    from luminary_tpu_torch.ops import camera as C
+    from luminary_tpu_torch.ops import material as M
+    from luminary_tpu_torch.ops import random as R
+    from luminary_tpu_torch.ops import vec as V
+    from luminary_tpu_torch.ops.vec import Vec3
+
+    cfg, cam = r.config, r.device_camera
+    px, py = r._px, r._py
+    n = px.shape[0]
+    rng = np.random.default_rng(9)
+    f32 = np.float32
+
+    def lanes(a):
+        return torch.as_tensor(np.ascontiguousarray(a, f32), device=dev)
+
+    def unit(k):
+        v = rng.standard_normal((n, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        return Vec3(*(lanes(v[:, i]) for i in range(3)))
+
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if isinstance(v, tuple):
+            return type(v)(*(cpu(x) for x in v)) if hasattr(v, "_fields") \
+                else tuple(cpu(x) for x in v)
+        return v
+
+    def flat(v):
+        out = []
+        for x in v:
+            out += flat(x) if isinstance(x, tuple) else [x]
+        return out
+
+    def compare(got, want):
+        err, nd = 0.0, 0
+        for a, b in zip(flat(got), flat(want)):
+            a = a.cpu()
+            if a.dtype == torch.bool:
+                nd += int((a != b).sum())
+                continue
+            nan = torch.isnan(a)
+            nd += int((nan != torch.isnan(b)).sum())
+            ok = ~nan & ~torch.isnan(b)
+            d = (a[ok] - b[ok]).abs()
+            nd += int((d != 0).sum())
+            if d.numel():
+                err = max(err, float(d.max()))
+        return err, nd
+
+    ns, wo, wi = unit(0), unit(1), unit(2)
+    trans = rng.random(n) < 0.3
+    mat = M.LaneMaterial(
+        albedo_r=lanes(rng.random(n)), albedo_g=lanes(rng.random(n)),
+        albedo_b=lanes(rng.random(n)), roughness=lanes(rng.random(n)),
+        metallic=lanes(rng.random(n) < 0.3), ior=lanes(rng.uniform(1.0, 2.5, n)),
+        translucent=torch.as_tensor(trans, device=dev),
+        opacity=lanes(np.ones(n)),
+        thin_walled=torch.as_tensor(trans & (rng.random(n) < 0.3), device=dev))
+    quad = r.device_scene.ggx_quad
+    fr = M.make_frame(mat, ns, wo, quad)
+    r_choice, r2 = lanes(rng.random(n)), lanes(rng.random((n, 2)))
+    eta = lanes(rng.uniform(0.5, 2.0, n))
+    t = lanes(rng.random(n) * 10.0 ** rng.integers(-2, 3, n))
+    sid = torch.tensor(3, dtype=torch.int64, device=dev)
+    pid = (py.long() * cfg.width + px.long()) & 0xFFFFFFFF
+    jitter = R.quasi_2d(R.RandomTarget.CAMERA_JITTER,
+                        torch.zeros((1,), dtype=torch.int64, device=dev),
+                        sid).reshape(-1)
+    ap = C._sample_aperture(cam, pid, sid, bn=R.blue_base(px, py))
+    w, h = cfg.width, cfg.height
+    cases = {
+        "camera_ray": (
+            lambda: C._camera_ray_kernel(cam, w, h, px, py, jitter, ap),
+            lambda d: C._camera_ray_plain(*d),
+            (cam, w, h, px, py, jitter, ap)),
+        "ray_point": (lambda: V.ray_point(ns, wo, t),
+                      lambda d: V.ray_point_plain(*d), (ns, wo, t)),
+        "make_frame": (lambda: M.make_frame(mat, ns, wo, quad),
+                       lambda d: M._make_frame_plain(*d), (mat, ns, wo, quad)),
+        "frame_eval": (lambda: M.frame_eval(mat, fr, mat.roughness, wi),
+                       lambda d: M._frame_eval_plain(*d),
+                       (mat, fr, mat.roughness, wi)),
+        "material_sample": (
+            lambda: M._material_sample_kernel(mat, fr, r_choice, r2, eta),
+            lambda d: M._material_sample_plain(*d), (mat, fr, r_choice, r2, eta)),
+    }
+    rows = []
+    for name, (kern, plain, args) in cases.items():
+        got = kern()
+        t0 = time.monotonic()
+        want = plain(tuple(cpu(a) for a in args))
+        cpu_s = time.monotonic() - t0
+        if name == "material_sample":
+            got, want = got[:3] + got[4:], want[:3] + want[4:]
+        err, nd = compare(got, want)
+        ms = cold_launch_ms(kern, dev)
+        plain_ms = cuda_ms(lambda: plain(args), iters=3, warmup=1)
+        b_bytes, b_ops = SHADING[name]
+        b_ms, b_by = bound(b_bytes * n, b_ops * n)
+        log("[shading %s] %d lanes against the plain version on the CPU (%.1f s):"
+            " %d values differ, max abs err %.3g; %.4f ms a launch (out of L2), "
+            "plain on the card %.3f ms, bound %.4f ms (%s) | %s" % (
+                name, n, cpu_s, nd, err, ms, plain_ms, b_ms, b_by, smi))
+        assert nd == 0, (name, nd, err)
+        rows.append(dict(
+            name=name, route="cuda", source="luminary_tpu_torch/csrc/shading.cu",
+            replaces="none: the float32 rounding of the reference's compiled CPU "
+                     "code (fused multiply-adds, glibc's sinf / cosf) at %s" % {
+                         "camera_ray": "luminary_tpu/ops/camera.py:136",
+                         "ray_point": "luminary_tpu/render/wavefront.py:557",
+                         "make_frame": "luminary_tpu/ops/material.py:113",
+                         "frame_eval": "luminary_tpu/ops/material.py:150",
+                         "material_sample": "luminary_tpu/ops/material.py:171",
+                     }[name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, lanes=n, plain_cpu_s=cpu_s))
+    return rows
+
+
 def _path_counts(zero=False) -> dict:
     """The launch counts of the main path's kernels (set to 0 first when
     ``zero``)."""
+    from luminary_tpu_torch.ops import libm
     from luminary_tpu_torch.ops import light_tree as LT
     from luminary_tpu_torch.ops import rowops as RO
     from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.ops import camera as C
+    from luminary_tpu_torch.ops import material as M
+    from luminary_tpu_torch.ops import vec as V
+    from luminary_tpu_torch.ops.vec import fma32
 
+    shading = dict(camera_ray=C.generate_camera_rays, ray_point=V.ray_point,
+                   make_frame=M.make_frame, frame_eval=M.frame_eval,
+                   material_sample=M.material_sample)
     if zero:
+        for fn in shading.values():
+            fn.launches = 0
+        fma32.launches = 0
+        libm.libm_sincos.launches = 0
         RO.gather_soa.launches = 0
         RO.gather_soa.table_launches.clear()
         RO.unplanar.launches = 0
@@ -474,7 +762,22 @@ def _path_counts(zero=False) -> dict:
         "traverse_wide.closest": TR.traverse_wide.variant_launches["closest"],
         "traverse_wide.any_hit": TR.traverse_wide.variant_launches["any_hit"],
         "light_tree_descend": LT.light_tree_descend.launches,
+        "libm_sincos": libm.libm_sincos.launches,
+        "fma32": fma32.launches,
+        **{k: fn.launches for k, fn in shading.items()},
     }
+
+
+# the kernels that only the cloud hash launches (ops/clouds.py): a path
+# without clouds runs them no time
+CLOUD_ONLY = ("fma32", "libm_sincos")
+
+
+def _assert_ran(counts, idle=CLOUD_ONLY, label=""):
+    """Every kernel of the path was launched, but those in ``idle``, which
+    this path does not run."""
+    missing = [k for k, v in counts.items() if v == 0 and k not in idle]
+    assert not missing, (label, missing, counts)
 
 
 # `python -m luminary_tpu_torch ARGS` as runpy runs it, printing the kernel
@@ -560,7 +863,7 @@ def product_path(repo, dev, smi, tree) -> dict:
     log("[get_image] 1080p on the card: %.3f ms median of 5 (min %.3f), "
         "host copy included | %s" % (float(np.median(img_ms)), min(img_ms),
                                      smi))
-    assert all(v > 0 for v in counts.values()), counts
+    _assert_ran(counts)
     out["host"] = dict(pack_s=pack_s, seconds=host_s, s_per_sample=host_sps,
                        renderer_s_per_sample=tree["seconds"] / tree["samples"],
                        polls=polls, launches=counts,
@@ -594,7 +897,7 @@ def product_path(repo, dev, smi, tree) -> dict:
         r.device
     assert img.dtype == np.uint8 and img.shape == (H, W, 3), (img.dtype, img.shape)
     assert int(img.max()) > 0 and n_async >= 2, n_async
-    assert all(v > 0 for v in counts.values()), counts
+    _assert_ran(counts)
     log("[host async] Host(device='cuda', asynchronous=True): "
         "request_output(2) answered by the device worker in %.3f s (pack and "
         "preview pyramid included, %d polls), %d samples, image mean %.2f; "
@@ -622,7 +925,7 @@ def product_path(repo, dev, smi, tree) -> dict:
         "accumulators bit-equal to 4 unbroken samples: %s; launches %s | %s"
         % (same, counts, smi))
     assert same, "a resumed render differs from an unbroken one"
-    assert all(v > 0 for v in counts.values()), counts
+    _assert_ran(counts)
     out["checkpoint"] = dict(bit_equal=same, launches=counts)
     del rb
     torch.cuda.empty_cache()
@@ -724,7 +1027,8 @@ def product_path(repo, dev, smi, tree) -> dict:
         runs[label] = dict(rc=cp.returncode, wall_s=wall, launches=counts,
                            stdout=cp.stdout[-2000:], stderr=cp.stderr[-4000:])
         assert cp.returncode == 0, (label, cp.returncode, cp.stderr[-4000:])
-        assert counts and all(v > 0 for v in counts.values()), (label, counts)
+        assert counts, label
+        _assert_ran(counts, label=label)
     png = read_png(os.path.join(work, "out.png"))
     assert png.shape[:2] == (H, W) and int(png.max()) > 0, png.shape
     m = re.search(r"rendered 4 spp in ([0-9.]+) s", runs["render"]["stdout"])
@@ -1112,7 +1416,8 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
         v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
                  mrays=r._last_rays_traced / dt / 1e6, launches=counts,
                  rays_per_sample=r._last_rays_per_sample)
-        assert all(c > 0 for c in counts.values()), counts
+        # the cloud hash runs where the clouds are marched (sky mode 0)
+        _assert_ran(counts, idle=() if cfg.use_clouds else CLOUD_ONLY, label=label)
         calls, sizes, saved = instrumented_sample(r, capture=mode == 1)
         v["march_ms"] = {m: dict(calls=len(c), ms_per_call=float(np.mean(c)),
                                  ms=[float(x) for x in c])
@@ -1200,13 +1505,11 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
             out["card_vs_cpu"][key] = v
 
     # the clouds_32 golden on the card, under tests/test_torch_golden_sky.py's
-    # rule: RMSE/scale < 0.02 over the image less at most 24 pixels more
-    # than 1e-2 of the scale apart (grazing rays whose march inputs differ
-    # from the reference's by ulps, on which the reference's own march
-    # moves by up to 100 %; 13 on an x86 CPU, 15 on an H100, 73 with the
-    # hash rounded op by op); the full-image figure is reported. And the
+    # rule: RMSE/scale < 0.02 over the whole image and at most 5 pixels more
+    # than 1e-2 of the scale apart (3 on an x86 CPU, where the march parts
+    # from the reference's in 37 of 65,536 lanes on equal inputs). And the
     # card against the plain CPU path, at most 8 pixels another decision
-    # (3 measured on an H100).
+    # (3 measured on an H100 before the port took the reference's rounding).
     repo = os.path.dirname(os.path.abspath(__file__))
     ref = np.load(os.path.join(repo, "tests", "golden", "clouds_32_64spp.npy"))
     rg = Renderer(clouds_scene(), device=dev)
@@ -1215,23 +1518,21 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
     scale = float(np.abs(ref).mean()) + 1e-6
     rel = float(np.sqrt(np.mean((img - ref) ** 2)) / scale)
     apart = np.abs(img - ref).max(axis=-1) > 1e-2 * scale
-    rest = float(np.sqrt(np.mean((img - ref)[~apart] ** 2)) / scale)
     rc = Renderer(clouds_scene(), device="cpu")
     rc.render_samples(64)
     v = _card_vs_cpu(img, rc.get_radiance(), 1e-2, 8)
-    log("[golden] clouds_32 at 64 spp on the card: RMSE/scale %.3g against "
-        "the golden over the image, %d of %d pixels more than 1e-2 of the "
-        "scale apart (at most 24), %.3g over the rest (bound 0.02); the card "
-        "against the plain CPU path RMSE/scale %.3g over all pixels, %d "
-        "pixels another decision (at most 8), %.3g over the rest (bound "
-        "1e-2) | %s" % (rel, int(apart.sum()), apart.size, rest,
-                        v["rmse_over_scale"], v["other_decision_pixels"],
-                        v["rest_rmse_over_scale"], smi))
-    assert np.isfinite(img).all() and apart.sum() <= 24 and rest < 0.02, (
-        int(apart.sum()), rest, rel)
+    log("[golden] clouds_32 at 64 spp on the card: RMSE/scale %.4g against "
+        "the golden over the image (bound 0.02), %d of %d pixels more than "
+        "1e-2 of the scale apart (at most 5); the card against the plain CPU "
+        "path RMSE/scale %.3g over all pixels, %d pixels another decision (at "
+        "most 8), %.3g over the rest (bound 1e-2) | %s" % (
+            rel, int(apart.sum()), apart.size, v["rmse_over_scale"],
+            v["other_decision_pixels"], v["rest_rmse_over_scale"], smi))
+    assert np.isfinite(img).all() and rel < 0.02 and apart.sum() <= 5, (
+        rel, int(apart.sum()))
     assert v["ok"], v
     out["clouds_32"] = dict(rmse_over_scale=rel, apart_pixels=int(apart.sum()),
-                            rest_rmse_over_scale=rest, card_vs_cpu=v)
+                            card_vs_cpu=v)
     return out
 
 
@@ -1368,7 +1669,8 @@ def optics_path(dev, smi, cuda_ms, bound, tree, size=(1920, 1080)) -> dict:
         v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
                  mrays=r._last_rays_traced / dt / 1e6, launches=counts,
                  rays_per_sample=r._last_rays_per_sample)
-        assert all(c > 0 for c in counts.values()), counts
+        # the lens camera traces its own primary rays (no camera_ray)
+        _assert_ran(counts, idle=CLOUD_ONLY + ("camera_ray",), label=label)
         calls, saved = instrumented_sample(r, ptable, spec_table)
         v["ms_per_call"] = {f: dict(calls=len(c), ms_per_call=float(np.mean(c)),
                                     ms=[float(x) for x in c])
@@ -1664,8 +1966,10 @@ def _any_hit_on_batch(saved, n, ds, cuda_ms, bound, smi) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="DIR",
-                    help="time an earlier version of kernels B and C, built "
-                         "from DIR, against this one")
+                    help="time an earlier version of kernels B, C and E, built "
+                         "from whichever of traverse_wide.cu, "
+                         "light_tree_descend.cu and gather_sum.cu DIR holds, "
+                         "against this one")
     args = ap.parse_args()
     import torch
 
@@ -1729,14 +2033,18 @@ def main() -> int:
     # (kernel library name, label, ctypes library) of the earlier builds
     # timed in turns with the port's own
     alts = []
-    jobs = []
+    jobs = [(("launch_floor", "this"),
+             os.path.join(repo, "luminary_tpu_torch", "csrc", "launch_floor.cu"), [],
+             os.path.join(kernels._BUILD, "liblaunch_floor.so"))]
     if args.compare:
-        jobs += [(("traverse_wide", "earlier"), os.path.join(args.compare, "traverse_wide.cu"),
-                  [], os.path.join(args.compare, "libtraverse_wide.so")),
-                 (("light_tree_descend", "earlier"),
-                  os.path.join(args.compare, "light_tree_descend.cu"), [],
-                  os.path.join(args.compare, "liblight_tree_descend.so"))]
-    for (name, label), (lib, summary) in build_libs(kernels, jobs).items():
+        for k in ("traverse_wide", "light_tree_descend", "gather_sum"):
+            src = os.path.join(args.compare, k + ".cu")
+            if os.path.exists(src):
+                jobs.append(((k, "earlier"), src, [],
+                             os.path.join(args.compare, "lib%s.so" % k)))
+    built_alt = build_libs(kernels, jobs)
+    floor_lib = built_alt.pop(("launch_floor", "this"))[0]
+    for (name, label), (lib, summary) in built_alt.items():
         alts.append((name, label, lib))
         for entry, line in sorted(summary.items()):
             log("[ptxas %s] %s: %s" % (label, entry, line))
@@ -2233,6 +2541,70 @@ def main() -> int:
                                          this_turns=turns["this"], others=lines)
     del occ, occ_ref, sh_o, sh_d, sh_t, sh_a
 
+    # glibc's sinf / cosf (csrc/libm_sincos.cu) against its plain float64
+    # version on the card: the bounce's 2,073,600 angles in [0, 2 pi) and a
+    # block of 8 x 2^20 cloud-hash arguments (most above 120, the integer
+    # reduction), bit for bit
+    from luminary_tpu_torch.ops import libm
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    angles = torch.rand(n, generator=gen, device=dev) * (2.0 * np.pi)
+    hashes = (torch.rand(8 << 20, generator=gen, device=dev) - 0.5) * 2e5
+    l_rows = []
+    for label, y in (("bounce angles", angles), ("cloud-hash arguments", hashes)):
+        for want_cos in (False, True):
+            got = libm.libm_sincos(y, want_cos)
+            assert same_bits(got, libm.glibc_exact(y, want_cos)), (
+                label, want_cos)
+        ms = cold_launch_ms(lambda: libm.libm_sincos(y, False), dev)
+        plain_ms = cuda_ms(lambda: libm.glibc_exact(y, False), iters=3)
+        b_ms, b_by = bound(8 * y.numel(), 0)
+        log("[libm_sincos %s] %d elements, sinf and cosf: exact; %.4f ms a "
+            "launch (out of L2), plain %.3f ms, bound %.4f ms (%s) | %s" % (
+                label, y.numel(), ms, plain_ms, b_ms, b_by, smi))
+        l_rows.append(dict(case=label, elements=y.numel(), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    kern.append(dict(
+        name="libm_sincos", route="cuda",
+        source="luminary_tpu_torch/csrc/libm_sincos.cu",
+        replaces="none: glibc's sinf/cosf, which the reference's compiled CPU "
+                 "code calls (luminary_tpu/ops/material.py:194, "
+                 "luminary_tpu/ops/clouds.py:72)",
+        max_abs_err=0.0, **{k: l_rows[0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=l_rows[0]["case"], cases=l_rows))
+    del angles, hashes
+
+    # fma32 (csrc/fma32.cu) against its plain float64 version at the path's
+    # width, full operands and scalar ones (by value and as a 0-d tensor)
+    from luminary_tpu_torch.ops.vec import fma32, fma32_plain
+
+    fa, fb = (torch.randn(n, generator=gen, device=dev) for _ in "ab")
+    fc = torch.randn(n, generator=gen, device=dev) * 2.0 ** torch.randint(
+        -30, 30, (n,), generator=gen, device=dev)
+    for args in ((fa, fb, fc), (fa, 1.5, fc),
+                 (fa, fb, torch.tensor(-0.25, device=dev)),
+                 (fa[::2], fb[:n // 2], fc[1::2]),
+                 (fa[:64, None], fb[:128], fc[:64, None])):
+        assert same_bits(fma32(*args), fma32_plain(*args))
+    ms = cold_launch_ms(lambda: fma32(fa, fb, fc), dev)
+    plain_ms = cuda_ms(lambda: fma32_plain(fa, fb, fc))
+    b_ms, b_by = bound(16 * n, 2 * n)
+    log("[fma32] %d lanes, full, broadcast and scalar operands: exact; %.4f ms "
+        "a launch (out of L2), plain %.3f ms, bound %.4f ms (%s) | %s" % (
+            n, ms, plain_ms, b_ms, b_by, smi))
+    kern.append(dict(
+        name="fma32", route="cuda", source="luminary_tpu_torch/csrc/fma32.cu",
+        replaces="none: the float32 multiply-adds that the reference's "
+                 "compiled CPU code contracts (luminary_tpu/ops/camera.py:136)",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+    del fa, fb, fc
+
+    # csrc/shading.cu: the camera ray, the hit point, the frame, the BSDF's
+    # evaluation and sample, each against its plain version
+    kern += shading_kernels(dev, smi, r, bound, cuda_ms)
+
     # random streams: card against CPU, 10^6 lanes
     rng = np.random.default_rng(3)
     pid = torch.as_tensor(rng.integers(0, 2**32, 10**6, dtype=np.uint64).astype(np.int64))
@@ -2258,7 +2630,8 @@ def main() -> int:
 
     # ---- 3b. prototype kernels (tools/proto_pallas_gather*.py,
     # tools/microbench_colext.py) at the prototypes' shapes ----
-    tool_kern = prototype_kernels(dev, cuda_ms, bound, smi)
+    tool_kern = prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts,
+                                  with_lib, ptxas, report.get("alt_ptxas", {}))
     kern += tool_kern
     # the port's three tool entry points, each kernel's count from 0
     from luminary_tpu_torch.tools import microbench_colext as CX
@@ -2303,7 +2676,7 @@ def main() -> int:
         "%.3f spp/s (%.0f rays/sample); launches %s; accumulation finite=%s "
         "sum=%.6g | %s" % (timed, dt, mrays, timed / dt, rays, launches, finite,
                            total, smi))
-    assert all(v > 0 for v in launches.values()), launches
+    _assert_ran(launches)
     assert finite and total > 0.0
     report["tree_1080p"] = dict(samples=timed, seconds=dt, mrays=mrays,
                                 spp_per_s=timed / dt, rays_per_sample=rays,
@@ -2394,6 +2767,8 @@ def main() -> int:
         for v in ("a", "b"):
             if k["name"] in sky_sea[v]["launches"]:
                 k["sky_sea_%s_launches" % v] = sky_sea[v]["launches"][k["name"]]
+        if k["name"] in CLOUD_ONLY:  # their path is the cloud march's
+            k["launches"] = k["sky_sea_a_launches"]
 
     # ---- 10. optics at full width: particles, spectral, the lens, sort ----
     optics = optics_path(dev, smi, cuda_ms, bound, report["tree_1080p"])

@@ -25,7 +25,8 @@ import threading
 import time
 
 SOURCES = ("gather_soa", "traverse_wide", "light_tree_descend", "gather_rows",
-           "gather_sum", "slab_body", "transpose")
+           "gather_sum", "slab_body", "transpose", "libm_sincos", "fma32",
+           "shading")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(
@@ -55,7 +56,13 @@ def _paths(name: str) -> tuple[str, str]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    # a source's own headers (csrc/*.cuh) count as the source
+    newest = max([os.path.getmtime(src)] + [
+        os.path.getmtime(os.path.join(_CSRC, f)) for f in os.listdir(_CSRC)
+        if f.endswith(".cuh")])
+    return os.path.getmtime(lib) < newest
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str, str]:
@@ -116,6 +123,39 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed to launch (cudaError %d)"
                            % (name, rc))
+
+
+def launch_lanes(name: str, fn: str, ins, outs, n: int, device, consts=()) -> None:
+    """Launch entry ``fn`` of kernel library ``name`` (the lane entry points
+    of ``csrc/shading.cu``) over ``n`` lanes. ``ins``: tensors on the card,
+    each 0-d or broadcastable to ``[n]`` (passed as a pointer and a stride
+    in elements, so views and broadcasts are not copied), or a raw device
+    pointer (an ``int``, for a table the kernel indexes itself); ``outs``:
+    contiguous ``[n]`` tensors; ``consts``: host floats."""
+    ptrs, strides = [], []
+    for v in ins:
+        if isinstance(v, int):
+            ptrs.append(v)
+            strides.append(0)
+            continue
+        if v.dim() > 0:
+            v = v.expand(n)
+        if v.device != device:
+            raise RuntimeError("%s: operand on %s, launch on %s" % (fn, v.device,
+                                                                    device))
+        ptrs.append(v.data_ptr())
+        strides.append(v.stride(0) if v.dim() else 0)
+    p = ctypes.c_void_p
+    f = entry(name, fn, [p, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int,
+                         ctypes.c_longlong, p])
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    c_consts = (ctypes.c_float * max(len(consts), 1))(*consts)
+    c_outs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    # (a CPU device only where the tests run a source on the emulation)
+    stream = stream_handle(device) if device.type == "cuda" else None
+    check(f(c_ptrs, c_strides, len(ptrs), c_consts, len(consts), c_outs,
+            len(outs), n, stream), fn)
 
 
 def stream_handle(device) -> int:

@@ -15,10 +15,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 from .camera_physical import pack_physical_camera
 from .random import RandomTarget, quasi_2d, random_1d, random_2d
-from .vec import Vec3, normalize, quaternion_apply_v, rdiv
+from .vec import (Vec3, fma32, normalize_fused, quaternion_apply_v, rdiv,
+                  sdiv)
 
 CAMERA_COMMON_SCALE = 0.001
 CAMERA_COMMON_INV_SCALE = 1.0 / CAMERA_COMMON_SCALE
@@ -108,28 +110,69 @@ def _sample_aperture(cam: DeviceCamera, pixel_id, sample_id, bn=None) -> Vec3:
 
 def generate_camera_rays(cam: DeviceCamera, width: int, height: int,
                          pixel_x, pixel_y, pixel_id, sample_id, bn=None):
-    """Thin-lens primary rays → (origin, direction) Vec3s in world space."""
+    """Thin-lens primary rays → (origin, direction) Vec3s in world space.
+    On the card one launch of ``csrc/shading.cu`` ``lum_camera_ray`` after
+    the random numbers; elsewhere :func:`_camera_ray_plain`."""
     jitter = quasi_2d(
         RandomTarget.CAMERA_JITTER,
         torch.zeros((1,), dtype=torch.int64, device=pixel_x.device), sample_id,
-    )
-    jx = jitter.reshape(-1)[0]
-    jy = jitter.reshape(-1)[1]
+    ).reshape(-1)
+    aperture_point = _sample_aperture(cam, pixel_id, sample_id, bn=bn)
+    if not pixel_x.is_cuda:
+        return _camera_ray_plain(cam, width, height, pixel_x, pixel_y, jitter,
+                                 aperture_point)
+    return _camera_ray_kernel(cam, width, height, pixel_x, pixel_y, jitter,
+                              aperture_point)
 
-    step = 2.0 * cam.fov / width
+
+def _camera_ray_kernel(cam: DeviceCamera, width: int, height: int, pixel_x,
+                       pixel_y, jitter, aperture_point: Vec3):
+    n = pixel_x.shape[0]
+    out = [torch.empty(n, dtype=torch.float32, device=pixel_x.device)
+           for _ in range(6)]
+    q = cam.rotation_q
+    kernels.launch_lanes(
+        "shading", "lum_camera_ray",
+        [pixel_x.to(torch.int32), pixel_y.to(torch.int32), jitter[0], jitter[1],
+         cam.fov, cam.object_distance, q[0], q[1], q[2], q[3], cam.camera_scale,
+         cam.pos[0], cam.pos[1], cam.pos[2], *aperture_point],
+        out, n, pixel_x.device,
+        consts=(float(width), float(height), _F32_INV_SCALE, _F32_SCALE))
+    generate_camera_rays.launches += 1
+    return Vec3(*out[:3]), Vec3(*out[3:])
+
+
+generate_camera_rays.launches = 0
+_F32_INV_SCALE = float(np.float32(CAMERA_COMMON_INV_SCALE))
+_F32_SCALE = float(np.float32(CAMERA_COMMON_SCALE))
+
+
+def _camera_ray_plain(cam: DeviceCamera, width: int, height: int, pixel_x,
+                      pixel_y, jitter, aperture_point: Vec3):
+    """Plain PyTorch version of :func:`generate_camera_rays` after its
+    random numbers (``jitter`` [2], the aperture point).
+
+    The direction is rounded as the reference's compiled code rounds it:
+    XLA's CPU back end contracts each product that has one use into the add
+    or subtract that consumes it (fma32), here the sensor point, both
+    normalizations, the aperture offset and the rotation. So the rays of a
+    closed aperture equal the reference's bit for bit."""
+    jx, jy = jitter[0], jitter[1]
+    step = sdiv(2.0 * cam.fov, width)
     vfov = step * height * 0.5
-    sx = cam.fov - step * (pixel_x.to(torch.float32) + jx)
-    sy = -vfov + step * (pixel_y.to(torch.float32) + jy)
+    sx = fma32(-step, pixel_x.to(torch.float32) + jx, cam.fov)
+    sy = fma32(step, pixel_y.to(torch.float32) + jy, -vfov)
     sensor = Vec3(sx, sy, torch.ones_like(sx))
 
-    to_focal = normalize(-sensor)
+    to_focal = normalize_fused(-sensor)
     focal_len = torch.clamp(cam.object_distance * CAMERA_COMMON_INV_SCALE,
                             min=0.01)
     scale = -focal_len / to_focal.z
-    focal_point = to_focal * scale
 
-    aperture_point = _sample_aperture(cam, pixel_id, sample_id, bn=bn)
-    direction = normalize(focal_point - aperture_point)
+    direction = normalize_fused(Vec3(
+        fma32(to_focal.x, scale, -aperture_point.x),
+        fma32(to_focal.y, scale, -aperture_point.y),
+        to_focal.z * scale - aperture_point.z))
 
     qw, qx, qy, qz = cam.rotation_q.unbind(0)
     origin = quaternion_apply_v(qw, qx, qy, qz, aperture_point)
@@ -139,5 +182,18 @@ def generate_camera_rays(cam: DeviceCamera, width: int, height: int,
         origin.y * s + cam.pos[1],
         origin.z * s + cam.pos[2],
     )
-    direction = quaternion_apply_v(qw, qx, qy, qz, direction)
+    direction = _rotate_fused(qw, qx, qy, qz, direction)
     return origin, direction
+
+
+def _rotate_fused(qw, qx, qy, qz, v: Vec3) -> Vec3:
+    """:func:`quaternion_apply_v` with the reference's compiled rounding:
+    the dot products, the cross product and the three-term sum contracted
+    as XLA's CPU code contracts them."""
+    dot_uv = fma32(qz, v.z, fma32(qx, v.x, qy * v.y))
+    k2 = fma32(qw, qw, -fma32(qz, qz, fma32(qx, qx, qy * qy)))
+    k3 = 2.0 * qw
+    c = Vec3(fma32(qy, v.z, -(qz * v.y)), fma32(qz, v.x, -(qx * v.z)),
+             fma32(qx, v.y, -(qy * v.x)))
+    return Vec3(*(fma32(k3, ci, fma32(k2, vi, (2.0 * ui) * dot_uv))
+                  for ui, vi, ci in ((qx, v.x, c.x), (qy, v.y, c.y), (qz, v.z, c.z))))

@@ -8,11 +8,9 @@ The lattice hash is the reference's ``fract(sin(h) * 43758.5453)``, in
 which one ulp of h gives a new hash value. The port rounds h as the
 reference's compiled code does (see ``value_noise3``): plain in its shadow
 march and cloud shadows, fused multiply-adds in the step of its march. The
-sin is the correctly rounded float32 sin (float64, rounded once), the same
-on the card and the CPU; XLA's differs from it by one ulp on ~1.5 % of
-arguments, which moves a hash by ~3e-3. On equal inputs the march then
-agrees with the reference's compiled march lane by lane, to those ulps
-(tests/test_torch_clouds.py).
+sin is the one the compiled code calls, glibc's ``sinf`` (``ops/libm.py``),
+the same on the card and the CPU. On equal inputs the march then agrees
+with the reference's compiled march lane by lane (tests/test_torch_clouds.py).
 
 The reference's step loops are kept as loops where they carry state (the
 transmittance and radiance of a march). The densities a march reads do not
@@ -32,7 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .vec import Vec3, dot as vdot, sdiv
+from .libm import sinf
+from .vec import Vec3, dot as vdot, fma32, sdiv
 from .volume import hg_phase_const
 
 _F32 = np.float32
@@ -98,25 +97,16 @@ def _hash3(px, py, pz, fused: bool, flat: bool = False):
     74.7, rounded as the reference's compiled code rounds it (see
     ``value_noise3``)."""
     if fused:
-        # each product of an integer lattice coordinate and its constant is
-        # exact in float64 and so is each sum below, so rounding a sum once
-        # to float32 gives the fused multiply-add's result
-        f64 = torch.float64
-        xa = px.to(f64) * float(_F32(127.1))
-        zc = pz.to(f64) * float(_F32(74.7))
-        # fma(px, 127.1, py * 311.7), then fma(pz, 74.7, that)
-        inner = (xa + (py * 311.7).to(f64)).to(torch.float32)
-        h = (zc + inner.to(f64)).to(torch.float32)
+        h = fma32(pz, 74.7, fma32(px, 127.1, py * 311.7))
         if flat:
             # py is the constant 0 here: the compiled code drops the y term
             # and fuses fma(px, 127.1, pz * 74.7) instead
-            h_xz = (xa + (pz * 74.7).to(f64)).to(torch.float32)
-            h = torch.where(py == 0.0, h_xz, h)
+            h = torch.where(py == 0.0, fma32(px, 127.1, pz * 74.7), h)
     else:
         h = px * 127.1 + py * 311.7 + pz * 74.7
-    # sin in float64, rounded once to float32: the correctly rounded float32
-    # sin, the same on the card and the CPU
-    s = torch.sin(h.to(torch.float64)).to(torch.float32)
+    # the reference's compiled sin is glibc's sinf (ops/libm.py), the same
+    # on the card and the CPU
+    s = sinf(h)
     return torch.abs(torch.remainder(s * 43758.5453, 1.0))
 
 

@@ -17,15 +17,17 @@ import torch
 from .ggx import (
     diffuse_eval,
     fresnel_dielectric,
-    ggx_reflect_eval,
+    ggx_reflect_parts,
     roughness_to_alpha,
     sample_vndf,
     sample_vndf_bounded,
     smith_g1,
     smith_g2,
 )
+from .. import kernels
+from .libm import cosf, sinf
 from .random import RandomTarget, random_1d, random_2d
-from .vec import Vec3, dot, normalize, orthonormal_basis, reflect, vwhere
+from .vec import Vec3, dot, fma32, normalize_fused, sqrt_rn, vwhere
 
 
 class LaneMaterial(NamedTuple):
@@ -93,10 +95,81 @@ def _f0_from_ior(ior):
     return r * r
 
 
+# The shading frame and the sampled direction are rounded as the reference's
+# compiled code rounds them: XLA's CPU back end contracts each product that
+# has one use into the add or subtract that consumes it (fma32). The frame's
+# dot products contract as fma(z, z', fma(x, x', y y')), the reflection's as
+# fma(z, z', fma(y, y', x x')). A grazing bounce turns an ulp of a sampled
+# direction into a new march through the clouds (tests/test_torch_rounding.py).
+
+def _dot_fused(a: Vec3, b: Vec3):
+    return fma32(a.z, b.z, fma32(a.x, b.x, a.y * b.y))
+
+
+def _basis_fused(n: Vec3):
+    """:func:`orthonormal_basis` with the reference's compiled rounding."""
+    s = torch.where(n.z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n.z)
+    b = n.x * n.y * a
+    t = Vec3(fma32(s * n.x * n.x, a, 1.0), s * b, -s * n.x)
+    return t, Vec3(b, fma32(n.y * n.y, a, s), -n.y)
+
+
+def _reflect_fused(v: Vec3, n: Vec3) -> Vec3:
+    d = 2.0 * fma32(v.z, n.z, fma32(v.y, n.y, v.x * n.x))
+    return Vec3(fma32(-d, n.x, v.x), fma32(-d, n.y, v.y), fma32(-d, n.z, v.z))
+
+
+def _to_world_fused(fr, v: Vec3) -> Vec3:
+    return Vec3(*(fma32(n_, v.z, fma32(t_, v.x, b_ * v.y)) for t_, b_, n_ in
+                  zip(fr.t, fr.b, fr.n)))
+
+
+def _lane_count(v: torch.Tensor) -> int:
+    return v.shape[0]
+
+
+def _frame_ins(fr: ShadingFrame) -> list:
+    """The frame's lane operands in csrc/shading.cu's order (FRAME_IN)."""
+    return [*fr.t, *fr.b, *fr.n, *fr.wo_l, fr.alpha, fr.f0_r, fr.f0_g, fr.f0_b,
+            fr.kd_r, fr.kd_g, fr.kd_b, fr.p_spec]
+
+
+def _empty(n: int, dev, k: int, dtype=torch.float32) -> list:
+    return [torch.empty(n, dtype=dtype, device=dev) for _ in range(k)]
+
+
 def make_frame(mat: LaneMaterial, ns: Vec3, wo: Vec3,
                quad: torch.Tensor) -> ShadingFrame:
-    t, b = orthonormal_basis(ns)
-    wo_l = Vec3(dot(wo, t), dot(wo, b), dot(wo, ns))
+    """The shading frame of each lane: its tangents, the view direction in
+    it, the lobes' albedos and the specular lobe's probability. On the card
+    one launch of ``csrc/shading.cu`` ``lum_make_frame``; elsewhere
+    :func:`_make_frame_plain`."""
+    if not ns.x.is_cuda:
+        return _make_frame_plain(mat, ns, wo, quad)
+    return _make_frame_kernel(mat, ns, wo, quad)
+
+
+def _make_frame_kernel(mat, ns, wo, quad):
+    dev, n = ns.x.device, _lane_count(ns.x)
+    o = _empty(n, dev, 17)
+    kernels.launch_lanes(
+        "shading", "lum_make_frame",
+        [*ns, *wo, mat.albedo_r, mat.albedo_g, mat.albedo_b, mat.metallic,
+         mat.ior, mat.roughness], o, n, dev)
+    make_frame.launches += 1
+    return ShadingFrame(Vec3(*o[0:3]), Vec3(*o[3:6]), ns, Vec3(*o[6:9]), o[9],
+                        *o[10:17], quad)
+
+
+make_frame.launches = 0
+
+
+def _make_frame_plain(mat: LaneMaterial, ns: Vec3, wo: Vec3,
+                      quad: torch.Tensor) -> ShadingFrame:
+    """Plain PyTorch version of :func:`make_frame`."""
+    t, b = _basis_fused(ns)
+    wo_l = Vec3(_dot_fused(wo, t), _dot_fused(wo, b), _dot_fused(wo, ns))
     f0d = _f0_from_ior(mat.ior)
     is_metal = mat.metallic > 0.5
     f0_r = torch.where(is_metal, mat.albedo_r, f0d)
@@ -111,9 +184,9 @@ def make_frame(mat: LaneMaterial, ns: Vec3, wo: Vec3,
     m = 1.0 - cos_o
     m5 = (m * m) * (m * m) * m
     f_avg = (f0_r + f0_g + f0_b) * (1.0 / 3.0)
-    fres = f_avg + (1.0 - f_avg) * m5
+    fres = fma32(1.0 - f_avg, m5, f_avg)
     kd_lum = (kd_r + kd_g + kd_b) * (1.0 / 3.0)
-    p = fres / torch.clamp(fres + kd_lum * (1.0 - fres), min=1e-6)
+    p = fres / torch.clamp(fma32(kd_lum, 1.0 - fres, fres), min=1e-6)
     p_spec = torch.where(is_metal, 1.0, torch.clamp(p, 0.05, 0.95))
     return ShadingFrame(t, b, ns, wo_l, roughness_to_alpha(mat.roughness),
                         f0_r, f0_g, f0_b, kd_r, kd_g, kd_b, p_spec, quad)
@@ -133,66 +206,120 @@ def _to_world(fr: ShadingFrame, v: Vec3) -> Vec3:
 
 def frame_eval(mat: LaneMaterial, fr: ShadingFrame, roughness, wi: Vec3):
     """((fr,fg,fb) = f·cos, pdf) for an explicit world direction (NEE/MIS).
-    Translucent lanes evaluate to zero (delta lobes)."""
+    Translucent lanes evaluate to zero (delta lobes). On the card one launch
+    of ``csrc/shading.cu`` ``lum_frame_eval``; elsewhere
+    :func:`_frame_eval_plain`."""
+    if not wi.x.is_cuda:
+        return _frame_eval_plain(mat, fr, roughness, wi)
+    return _frame_eval_kernel(mat, fr, roughness, wi)
+
+
+def _frame_eval_kernel(mat, fr, roughness, wi):
+    dev, n = fr.alpha.device, _lane_count(fr.alpha)
+    o = _empty(n, dev, 4)
+    kernels.launch_lanes(
+        "shading", "lum_frame_eval",
+        [mat.translucent, *_frame_ins(fr), roughness, *wi,
+         fr.quad.contiguous().data_ptr()], o, n, dev)
+    frame_eval.launches += 1
+    return tuple(o[:3]), o[3]
+
+
+frame_eval.launches = 0
+
+
+def _frame_eval_plain(mat: LaneMaterial, fr: ShadingFrame, roughness, wi: Vec3):
+    """Plain PyTorch version of :func:`frame_eval`."""
     wi_l = _to_local(fr, wi)
-    spec, pdf_spec = ggx_reflect_eval(
+    f, pdf = _opaque_eval(fr, wi_l, roughness)
+    live = ~mat.translucent
+    return tuple(torch.where(live, c, 0.0) for c in f), torch.where(live, pdf, 0.0)
+
+
+def _opaque_eval(fr: ShadingFrame, wi_l: Vec3, roughness):
+    """The GGX coat over Lambert: ((r, g, b) value·cos, pdf), the specular
+    Fresnel product and the lobe probabilities contracted into their sums
+    as the reference's compiled code contracts them."""
+    fres, scale, pdf_spec = ggx_reflect_parts(
         fr.quad, fr.wo_l, wi_l, fr.alpha, (fr.f0_r, fr.f0_g, fr.f0_b),
         roughness)
-    diff, pdf_diff = diffuse_eval(wi_l, (fr.kd_r, fr.kd_g, fr.kd_b))
-    pdf = fr.p_spec * pdf_spec + (1.0 - fr.p_spec) * pdf_diff
-    live = ~mat.translucent
-    f = tuple(torch.where(live, s + d, 0.0) for s, d in zip(spec, diff))
-    return f, torch.where(live, pdf, 0.0)
+    _, w = diffuse_eval(wi_l, (fr.kd_r, fr.kd_g, fr.kd_b))
+    f = tuple(fma32(kd, w, fc * scale)
+              for fc, kd in zip(fres, (fr.kd_r, fr.kd_g, fr.kd_b)))
+    return f, fma32(1.0 - fr.p_spec, w, fr.p_spec * pdf_spec)
 
 
 def material_sample(mat: LaneMaterial, fr: ShadingFrame, ns: Vec3, wo: Vec3,
                     pixel_id, sample_id, depth, eta_rel=None, bn=None):
     """Sample an outgoing direction → (wi, weight (r,g,b) = f·cos/pdf, pdf,
-    is_delta, transmitted)."""
-    wo_l = fr.wo_l
+    is_delta, transmitted). On the card one launch of ``csrc/shading.cu``
+    ``lum_material_sample`` after the random numbers; elsewhere
+    :func:`_material_sample_plain`."""
     r_choice = random_1d(RandomTarget.BSDF_CHOICE, pixel_id, sample_id, depth,
                          bn=bn)
     r2 = random_2d(RandomTarget.BSDF_REFLECTION, pixel_id, sample_id, depth,
                    bn=bn)
+    eta = eta_rel if eta_rel is not None else mat.ior
+    if not fr.alpha.is_cuda:
+        return _material_sample_plain(mat, fr, r_choice, r2, eta)
+    return _material_sample_kernel(mat, fr, r_choice, r2, eta)
+
+
+def _material_sample_kernel(mat, fr, r_choice, r2, eta):
+    dev, n = fr.alpha.device, _lane_count(fr.alpha)
+    o = _empty(n, dev, 7) + _empty(n, dev, 1, torch.bool)
+    kernels.launch_lanes(
+        "shading", "lum_material_sample",
+        [r_choice, r2[..., 0], r2[..., 1], *_frame_ins(fr), mat.roughness,
+         mat.albedo_r, mat.albedo_g, mat.albedo_b, mat.translucent,
+         mat.thin_walled, eta, fr.quad.contiguous().data_ptr()], o, n, dev)
+    material_sample.launches += 1
+    return Vec3(*o[0:3]), tuple(o[3:6]), o[6], mat.translucent, o[7]
+
+
+material_sample.launches = 0
+
+
+def _material_sample_plain(mat: LaneMaterial, fr: ShadingFrame, r_choice, r2,
+                           eta):
+    """Plain PyTorch version of :func:`material_sample` after its random
+    numbers (``r_choice`` [N], ``r2`` [N, 2]) and its relative IOR."""
+    wo_l = fr.wo_l
 
     # --- opaque path: specular or diffuse ---
     choose_spec = r_choice < fr.p_spec
     h = sample_vndf_bounded(wo_l, fr.alpha, r2)
-    wi_spec_l = reflect(-wo_l, h)
+    wi_spec_l = _reflect_fused(-wo_l, h)
     phi = 2.0 * np.pi * r2[..., 0]
-    sr = torch.sqrt(torch.clamp(r2[..., 1], 0.0, 1.0))
+    sr = sqrt_rn(torch.clamp(r2[..., 1], 0.0, 1.0))
     wi_diff_l = Vec3(
-        torch.cos(phi) * sr,
-        torch.sin(phi) * sr,
-        torch.sqrt(torch.clamp(1.0 - r2[..., 1], min=0.0)),
+        cosf(phi) * sr,
+        sinf(phi) * sr,
+        sqrt_rn(torch.clamp(1.0 - r2[..., 1], min=0.0)),
     )
     wi_l = vwhere(choose_spec, wi_spec_l, wi_diff_l)
-    spec, pdf_spec = ggx_reflect_eval(
-        fr.quad, wo_l, wi_l, fr.alpha, (fr.f0_r, fr.f0_g, fr.f0_b),
-        mat.roughness)
-    diff, pdf_diff = diffuse_eval(wi_l, (fr.kd_r, fr.kd_g, fr.kd_b))
-    pdf = fr.p_spec * pdf_spec + (1.0 - fr.p_spec) * pdf_diff
+    f, pdf = _opaque_eval(fr, wi_l, mat.roughness)
     ok = (wi_l.z > 0.0) & (pdf > 1e-10)
     inv_pdf = torch.where(ok, 1.0 / torch.clamp(pdf, min=1e-10), 0.0)
-    w_opaque = tuple((s + d) * inv_pdf for s, d in zip(spec, diff))
+    w_opaque = tuple(c * inv_pdf for c in f)
 
     # --- translucent path: rough dielectric ---
-    eta = eta_rel if eta_rel is not None else mat.ior
     ht = sample_vndf(wo_l, fr.alpha, r2)
-    cos_oh = torch.clamp(dot(wo_l, ht), 1e-6, 1.0)
+    # the translucent lobe is rounded by the same rule but not yet bit for
+    # bit: the compiled rsqrt in sample_vndf is the x86 estimate refined by
+    # Newton steps, and some of this lobe's sites are not found (ROADMAP.md
+    # queue 3)
+    cos_oh = torch.clamp(_dot_fused(wo_l, ht), 1e-6, 1.0)
     fres = fresnel_dielectric(cos_oh, eta)
     fres = torch.where(mat.thin_walled, 2.0 * fres / (1.0 + fres), fres)
     choose_reflect = r_choice < fres
-    wi_refl_l = reflect(-wo_l, ht)
+    wi_refl_l = _reflect_fused(-wo_l, ht)
     inv_eta = 1.0 / torch.clamp(eta, min=1e-6)
-    sin2_t = inv_eta * inv_eta * torch.clamp(1.0 - cos_oh * cos_oh, min=0.0)
+    sin2_t = inv_eta * inv_eta * torch.clamp(fma32(-cos_oh, cos_oh, 1.0), min=0.0)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
-    wi_refr_l = Vec3(
-        -wo_l.x * inv_eta + (inv_eta * cos_oh - cos_t) * ht.x,
-        -wo_l.y * inv_eta + (inv_eta * cos_oh - cos_t) * ht.y,
-        -wo_l.z * inv_eta + (inv_eta * cos_oh - cos_t) * ht.z,
-    )
+    cos_t = sqrt_rn(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
+    bend = fma32(inv_eta, cos_oh, -cos_t)
+    wi_refr_l = Vec3(*(fma32(-w, inv_eta, bend * h_) for w, h_ in zip(wo_l, ht)))
     wi_thin_l = Vec3(-wo_l.x, -wo_l.y, -wo_l.z)
     wi_refr_l = vwhere(mat.thin_walled, wi_thin_l, wi_refr_l)
     choose_reflect = choose_reflect | (tir & ~mat.thin_walled)
@@ -213,5 +340,5 @@ def material_sample(mat: LaneMaterial, fr: ShadingFrame, ns: Vec3, wo: Vec3,
     wl2 = wi_l.x * wi_l.x + wi_l.y * wi_l.y + wi_l.z * wi_l.z
     degen = wl2 < 1e-16
     wi_l = vwhere(degen, Vec3.of(0.0, 0.0, 1.0, like=wi_l), wi_l)
-    wi = _to_world(fr, normalize(wi_l))
+    wi = _to_world_fused(fr, normalize_fused(wi_l))
     return wi, weight, pdf_out, is_trans, transmitted

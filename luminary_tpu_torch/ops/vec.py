@@ -8,9 +8,13 @@ because per-component tensors are also coalesced on a GPU.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from .. import kernels
 
 
 class Vec3(NamedTuple):
@@ -93,6 +97,125 @@ def normalize(v: Vec3, eps: float = 1e-20) -> Vec3:
     return Vec3(v.x * inv, v.y * inv, v.z * inv)
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """The float32 fused multiply-add ``a * b + c``, rounded once, as XLA's
+    CPU code computes a product that has one use and the add that consumes
+    it. Numbers are taken as float32 constants. On the card one launch of
+    ``csrc/fma32.cu`` (the card's own fused multiply-add); elsewhere
+    :func:`fma32_plain`. Both give the same bits."""
+    for v in (a, b, c):
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            return _fma32_cuda(a, b, c, v.device)
+    return fma32_plain(a, b, c)
+
+
+def _fma32_cuda(a, b, c, dev) -> torch.Tensor:
+    shape = torch.broadcast_shapes(*(v.shape for v in (a, b, c)
+                                     if isinstance(v, torch.Tensor)))
+    n = 1
+    for d in shape:
+        n *= d
+    args, keep = [], []
+    for v in (a, b, c):
+        if not isinstance(v, torch.Tensor):
+            args += [None, 0, float(v)]
+            continue
+        v = v.to(device=dev, dtype=torch.float32)
+        if v.numel() == 1:
+            v, stride = v.reshape(1), 0
+        else:
+            # a broadcast operand is passed as a stride, not copied
+            v = v.expand(shape)
+            if v.dim() == 1:
+                stride = v.stride(0)
+            else:
+                v, stride = v.contiguous(), 1
+        keep.append(v)
+        args += [v.data_ptr(), stride, 0.0]
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    fn = kernels.entry("fma32", "lum_fma32",
+                       [p, i64, f32, p, i64, f32, p, i64, f32, p, i64, p])
+    kernels.check(fn(*args, out.data_ptr(), n, kernels.stream_handle(dev)),
+                  "fma32")
+    fma32.launches += 1
+    return out
+
+
+fma32.launches = 0
+
+
+def fma32_plain(a, b, c) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fma32`: the product is exact in
+    float64 and the sum is rounded once in float64. Rounding that to float32
+    rounds the exact value alike unless the float64 sum landed on a float32
+    midpoint (a tie that the exact value may not be), or lies below
+    float32's normal range; only those lanes take the sum's rounding error
+    (TwoSum) into account, rounding to odd in float64 first."""
+    f64 = torch.float64
+
+    def wide(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(f64)
+        return float(np.float32(v))
+
+    p = wide(a) * wide(b)
+    q = wide(c)
+    s = p + q
+    out = s.to(torch.float32)
+    low = s.view(torch.int64) & 0x1FFFFFFF
+    at = torch.nonzero(((low == 0x10000000) | (torch.abs(s) < 2.0 ** -126))
+                       .reshape(-1)).flatten()
+    if at.numel():
+        p, q = (torch.broadcast_to(torch.as_tensor(v, dtype=f64, device=s.device),
+                                   s.shape).reshape(-1)[at] for v in (p, q))
+        out.view(-1)[at] = _round_odd_sum(p, q).to(torch.float32)
+    return out
+
+
+def _round_odd_sum(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``p + q`` in float64 rounded to odd: where the sum is inexact, the odd
+    one of its two float64 neighbours (TwoSum finds the error), so that one
+    more rounding to float32 is the single rounding of the exact sum."""
+    s = p + q
+    pv = s - q
+    qv = s - pv
+    e = (p - pv) + (q - qv)
+    even = (s.view(torch.int64) & 1) == 0
+    bump = (e != 0) & even & torch.isfinite(s)
+    inf = torch.full_like(s, float("inf"))
+    return torch.where(bump, torch.nextafter(s, torch.where(e > 0, inf, -inf)), s)
+
+
+def ray_point(origin: Vec3, direction: Vec3, t) -> Vec3:
+    """``origin + direction * t``, rounded once per component as the
+    reference's compiled integrator rounds its hit point: on a grazing hit
+    the sum cancels, and the next origin keeps the difference. On the card
+    one launch of ``csrc/shading.cu`` ``lum_ray_point``; elsewhere
+    :func:`ray_point_plain`."""
+    if not t.is_cuda:
+        return ray_point_plain(origin, direction, t)
+    return _ray_point_kernel(origin, direction, t)
+
+
+def _ray_point_kernel(origin: Vec3, direction: Vec3, t) -> Vec3:
+    n = t.shape[0]
+    out = [torch.empty(n, dtype=torch.float32, device=t.device) for _ in range(3)]
+    kernels.launch_lanes("shading", "lum_ray_point", [*origin, *direction, t],
+                         out, n, t.device)
+    ray_point.launches += 1
+    return Vec3(*out)
+
+
+ray_point.launches = 0
+
+
+def ray_point_plain(origin: Vec3, direction: Vec3, t) -> Vec3:
+    """Plain PyTorch version of :func:`ray_point`."""
+    return Vec3(fma32(direction.x, t, origin.x), fma32(direction.y, t, origin.y),
+                fma32(direction.z, t, origin.z))
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded float32 square root, as XLA and CUDA take it.
     PyTorch's float32 CPU kernel is an ulp off on ~0.7 % of inputs, which
@@ -107,6 +230,14 @@ def normalize_rn(v: Vec3, eps: float = 1e-20) -> Vec3:
     """:func:`normalize` with the correctly rounded square root."""
     inv = torch.reciprocal(torch.clamp(sqrt_rn(torch.clamp(dot(v, v), min=0.0)),
                                        min=eps))
+    return Vec3(v.x * inv, v.y * inv, v.z * inv)
+
+
+def normalize_fused(v: Vec3, eps: float = 1e-20) -> Vec3:
+    """:func:`normalize_rn` with ``dot(v, v)`` contracted as XLA's CPU code
+    contracts it: ``fma(z, z, fma(x, x, y * y))``."""
+    d = fma32(v.z, v.z, fma32(v.x, v.x, v.y * v.y))
+    inv = torch.reciprocal(torch.clamp(sqrt_rn(torch.clamp(d, min=0.0)), min=eps))
     return Vec3(v.x * inv, v.y * inv, v.z * inv)
 
 

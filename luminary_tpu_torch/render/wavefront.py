@@ -101,7 +101,8 @@ from ..ops.spectral import (
 )
 from ..ops.textures import sample_atlas
 from ..ops.traverse import Hit, trace_closest, trace_occluded, trace_transmission
-from ..ops.vec import Vec3, dot, gather as vgather, normalize, sdiv, vwhere
+from ..ops.vec import (Vec3, dot, gather as vgather, normalize, ray_point, sdiv,
+                       vwhere)
 from ..ops.volume import (
     fog_transmittance,
     hg_phase,
@@ -621,9 +622,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # gathers (small tables); with textures one aux row too ----
         slot = torch.where(hit_lane, hit.slot, 0)
         t_safe = torch.where(hit_lane, hit.t, 1.0)
-        hit_pos = Vec3(origin.x + direction.x * t_safe,
-                       origin.y + direction.y * t_safe,
-                       origin.z + direction.z * t_safe)
+        hit_pos = ray_point(origin, direction, t_safe)
         if vol_on:
             vol_pos = Vec3(origin.x + direction.x * t_col,
                            origin.y + direction.y * t_col,

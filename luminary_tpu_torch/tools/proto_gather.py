@@ -133,8 +133,8 @@ def gather_sum_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_sum(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Kernel E: ``[1, cols]`` sum of the rows ``tab[idx[i]]`` over i, added
-    in index order (bit-equal to :func:`gather_sum_plain`); at most 128
-    columns."""
+    in index order (bit-equal to :func:`gather_sum_plain`; a block per four
+    columns, the rows fetched ahead of the adds); at most 128 columns."""
     _check_table(tab, 128)
     if tab.device.type == "cpu":
         return gather_sum_plain(tab, idx)

@@ -6,7 +6,14 @@ card (port of ``tools/proto_pallas_gather2.py``): kernel E's
 The prototype measured, inside one kernel, a chain of 4096 row fetches in
 which each row chooses the next index (E2c), and a per-call slab test of G
 packets x 16 children x 8 rays with its rows already resident or fetched
-one by one first (E5). On the TPU it took a marginal cost over chained
+one by one first (E5).
+
+E2c's function is unchanged on the card, but its time no longer measures
+one dependent fetch a step: the next index depends on a row only through
+that row's own columns 0 and 1, so kernel E lists the visited rows from a
+next-index table of all S rows in shared memory, fetches them all at once
+and sums them in order. Its ns a step is the call's time over the steps;
+the ordered float adds, not the fetches, bound it. On the TPU it took a marginal cost over chained
 ``fori_loop`` calls, ``(T2 - T1) / (K2 - K1)``, to see past the host; that
 workaround is not ported: the device time of a launch is taken with CUDA
 events around CUDA-graph replays, and one eager call's time, host
@@ -88,9 +95,11 @@ def chain_rows(tab: np.ndarray, seed: float, steps: int = ROWS_PER_CALL
 
 def gather_chain(tab: torch.Tensor, seed, steps: int = ROWS_PER_CALL
                  ) -> torch.Tensor:
-    """Kernel E's chain of ``steps`` dependent row fetches (one warp), equal
-    to :func:`gather_chain_plain` bit for bit. ``seed`` is a number or a
-    one-element tensor; at most 128 columns, ``|seed| < 2147``."""
+    """Kernel E's chain of ``steps`` row fetches, each row choosing the
+    next, equal to :func:`gather_chain_plain` bit for bit (the rows are
+    listed from a next-index table, fetched at once and summed in order).
+    ``seed`` is a number or a one-element tensor; at most 128 columns,
+    ``|seed| < 2147``."""
     _check_table(tab, 128)
     if tab.device.type == "cpu":
         return gather_chain_plain(tab, seed, steps)
@@ -182,9 +191,10 @@ slab_body.launches = 0
 
 def e2c_scalar_loop(s=S, cols=COLS, steps=ROWS_PER_CALL, chain_seed=CHAIN_SEED,
                     device=None, seed=0, iters=20):
-    """E2c: one chain of ``steps`` dependent row fetches, kernel E. The
-    prototype's table (uniform in [0, 1)) never takes the ``row[1] > 2``
-    branch; the chain still waits on every row."""
+    """E2c: one chain of ``steps`` row fetches, each row choosing the next,
+    kernel E. The prototype's table (uniform in [0, 1)) never takes the
+    ``row[1] > 2`` branch. The time a step is the call's over the steps:
+    kernel E lists the rows first, so it is not one dependent fetch."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     tab = torch.as_tensor(rng.random((s, cols), dtype=np.float32)).to(dev)
@@ -193,7 +203,8 @@ def e2c_scalar_loop(s=S, cols=COLS, steps=ROWS_PER_CALL, chain_seed=CHAIN_SEED,
     ms = launch_ms(lambda: gather_chain(tab, cs, steps), dev, iters)
     call = time_ms(lambda: gather_chain(tab, cs, steps), dev, iters)
     print("E2c scalar-loop fetch (gather_chain) on %s: %.1f us/call -> %.1f "
-          "ns/row (%.1f Mrows/s; one eager call %.1f us)" % (
+          "ns/step over the call (rows listed first, then summed in order: not "
+          "one dependent fetch; %.1f Mrows/s; one eager call %.1f us)" % (
               dev.type, ms * 1e3, ms / steps * 1e6, steps / ms / 1e3, call * 1e3))
     return out, ms
 

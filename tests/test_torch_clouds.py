@@ -7,24 +7,24 @@ into fused multiply-adds wherever each product has one use: in the step
 of the compiled ``cloud_march`` (each corner hash is a fusion of its own)
 but not in its shadow march or in ``cloud_sun_transmittance`` (one fusion
 of all the hashes, whose products are shared); eager ops never contract.
-The port rounds h the same way at each site (``fused``). The port's sin is
-the correctly rounded float32 sin; XLA's differs from it by one ulp on
-~1.5 % of arguments, which moves a hash by ~3e-3 and, where the product
-lies that close to an integer, wraps it.
+The port rounds h the same way at each site (``fused``). XLA's sin is the
+C library's ``sinf`` (glibc's, not correctly rounded: one ulp apart from the
+correctly rounded sin on ~1.3 % of arguments, which moves a hash by ~3e-3
+or, where the product lies that close to an integer, wraps it); the port
+takes a copy of it (``ops/libm.py``).
 
 Measured on an x86 CPU over 4096 random points (eager JAX against the
-port's plain rounding): ``value_noise3`` mean |diff| 2e-5 to 9e-5, 0.6 % of
-points beyond 1e-3; ``cloud_density`` mean |diff| 6e-6, max 0.0056. Held as
-mean |diff| < 2e-4, under 2 % of points beyond 1e-3, density max < 0.02.
-The fused hash against the compiled ``_hash3``: 0.3 % of lattice points
-apart (the sin's ulps), against 25 % for the plain rounding. The march
-against the compiled ``cloud_march`` at 1024 lanes, 16 steps:
-transmittance mean |diff| 2.4e-5, 0.2 % of lanes beyond 1e-3 (max 0.0018);
-radiance 0.1 % of lanes beyond 1e-3 of its largest, the means within
-0.004 %. Held as transmittance mean |diff| < 2e-4, under 1 % of lanes
-beyond 1e-3 in transmittance and in radiance, the means within 0.1 %.
-``cloud_sun_transmittance`` (plain) agrees lane by lane within 0.02
-(measured max 0.0054).
+port's plain rounding): ``cloud_density`` equal on every point (it read
+mean |diff| 6e-6, max 0.0056 with the correctly rounded sin). Held as mean
+|diff| < 2e-4, under 2 % of points beyond 1e-3, density max < 0.02. The
+fused hash equals the compiled ``_hash3`` on every lattice point (it read
+0.3 % apart with the correctly rounded sin), against 25 % apart for the
+plain rounding. The march against the compiled ``cloud_march`` at 1024
+lanes, 16 steps: 69 % of lanes bit-equal, transmittance mean |diff| 2.6e-7
+(max 3.5e-5), radiance means within 7e-7 (it read 2.4e-5 and 0.004 %).
+Held as transmittance mean |diff| < 2e-4, under 1 % of lanes beyond 1e-3
+in transmittance and in radiance, the means within 0.1 %.
+``cloud_sun_transmittance`` (plain) agrees lane by lane within 0.02.
 """
 
 import numpy as np
@@ -153,16 +153,16 @@ def test_cloud_march_matches_reference():
 
 
 def test_fused_hash_matches_compiled_reference():
-    """The fused rounding of h against the JAX package's compiled
-    ``_hash3`` (a fusion of its own, as in the march's step), on lattice
-    points; the plain rounding parts from it."""
+    """The fused rounding of h and glibc's sinf equal the JAX package's
+    compiled ``_hash3`` (a fusion of its own, as in the march's step) on
+    every lattice point; the plain rounding parts from it."""
     p = np.floor(np.random.default_rng(6).uniform(-1, 1, (N, 3)) * 2000.0)
     p = p.astype(np.float32)
     ref = np.asarray(jax.jit(JC._hash3)(*(jnp.asarray(p[:, i]) for i in range(3))))
     pt = [torch.as_tensor(np.ascontiguousarray(p[:, i])) for i in range(3)]
     fused = C._hash3(*pt, True).numpy()
     plain = C._hash3(*pt, False).numpy()
-    assert np.mean(np.abs(fused - ref) > 1e-2) < 0.005
+    assert np.array_equal(fused, ref), int((fused != ref).sum())
     assert np.mean(np.abs(plain - ref) > 1e-2) > 0.1
 
 

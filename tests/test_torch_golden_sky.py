@@ -1,23 +1,19 @@
 """The port's render of the ``clouds_32`` golden scene (the sun plane under
 the low cloud layer: the cloud march on the miss side, cloud shadows) at 64
-spp on the CPU against ``tests/golden/clouds_32_64spp.npy``.
+spp on the CPU against ``tests/golden/clouds_32_64spp.npy``, under the bound
+of ``tests/test_golden.py``: RMSE/scale < 0.02 over the whole image.
 
-The bound of ``tests/test_golden.py`` is RMSE/scale < 0.02 over the image.
 Measured on an x86 CPU (``tests/torch_clouds_golden_trace.py``): the JAX
 package's own render reads 2.0e-4, and 7.87 when XLA may not fuse
-multiply-adds (``--xla_cpu_max_isa=AVX``), the figure the port read while
-its cloud hash rounded h op by op. With the hash rounded as the compiled
-reference rounds it, the port reads 0.76 over the image: 13 of 1024 pixels
-lie more than 1e-2 of the scale apart and the rest reads 6.3e-4. Those
-pixels hold grazing rays, marched across ~250 km of the layer, whose march
-inputs differ from the reference's by a few ulps (as most lanes' do: the
-camera and bounce arithmetic is not the same bit for bit). On those two
-inputs the reference's own compiled march gives 2077 and 2363 at the worst
-pixel, 0 and 8852 at another; on the port's inputs it agrees with the
-port's march within 1e-3 in all but 11 of 65,536 lanes. So the test holds
-the golden's bound on the image less at most 24 such pixels (13 here, 15
-on an H100; the hash rounded op by op leaves 73). The full-image figure
-stays in ROADMAP.md queue 3.
+multiply-adds (``--xla_cpu_max_isa=AVX``). The port reads 0.0157 over the
+image, 3 of 1024 pixels more than 1e-2 of the scale apart. It follows the
+compiled reference's rounding in the cloud hash (fused h, glibc's sinf),
+the camera ray, the hit point and the bounce (tests/test_torch_rounding.py),
+so that every closest walk of the 64 samples starts from the reference's
+bits and the cloud march's inputs are equal on every lane; the march's own
+result still parts in 37 of 65,536 lanes (3 beyond 1e-3), which holds those
+pixels apart (ROADMAP.md queue 3). Before, the port read 0.764 over the
+image, with up to 24 pixels left out of the bound.
 """
 
 import os
@@ -42,6 +38,7 @@ def test_clouds_32_against_golden():
     scale = float(np.abs(ref).mean()) + 1e-6
     full = float(np.sqrt(np.mean((img - ref) ** 2)) / scale)
     apart = np.abs(img - ref).max(axis=-1) > 1e-2 * scale
-    rest = float(np.sqrt(np.mean((img - ref)[~apart] ** 2)) / scale)
-    assert apart.sum() <= 24 and rest < 0.02, (int(apart.sum()), rest, full)
+    # the bound over the whole image, and no more pixels apart than the 3
+    # measured here plus the 2 an H100 added before (13 against 15)
+    assert full < 0.02 and apart.sum() <= 5, (full, int(apart.sum()))
     assert r.sample_count == SPP

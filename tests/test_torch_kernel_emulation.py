@@ -7,8 +7,12 @@ CUDA built-ins they use (``_EMU`` below). The lanes of one warp group -- a
 32-ray packet of kernel B, the 4 lanes of one shading point of kernel C --
 run as threads that meet at every warp collective (ballot, vote, shuffle,
 min/max reduce), so the kernels' own code, lane layout and packet bookkeeping
-included, runs here. It does not stand in for the card: what nvcc makes of
-the sources, and the card's arithmetic, are checked by ``chip_smoke.py``.
+included, runs here. Kernels whose blocks are wider than a warp (kernel E)
+run through ``emu_launch``: a block's threads are one group that meets at
+``__syncthreads``, its dynamic shared memory is a buffer of the launch's
+size, and ``cp.async`` is a plain copy, complete when it is issued. It does
+not stand in for the card: what nvcc makes of the sources, and the card's
+arithmetic, are checked by ``chip_smoke.py``.
 
 Tolerances: kernel B's rules are those ``chip_smoke.py`` holds it to (see the
 test); g++ is told not to contract multiply-adds, as nvcc is by
@@ -48,6 +52,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _EMU = r"""
 #include <cmath>
 #include <condition_variable>
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <mutex>
@@ -169,6 +174,39 @@ template <class F> void run_groups(long long blocks, int threads, int size, F bo
     });
   for (auto& t : lanes) t.join();
 }
+
+// a whole block's barrier, for launches whose group is the block
+inline void __syncthreads() { tl_group->wait(); }
+
+// a launch run by emu_launch: its blocks one after another, each block's
+// threads as one group, its dynamic shared memory in emu_dyn_smem
+std::vector<float4> emu_dyn;
+void* emu_dyn_smem;
+dim3 blockDim;
+template <class F>
+void emu_launch(long long grid, int block, size_t smem, cudaStream_t, F body) {
+  emu_dyn.assign(smem / sizeof(float4) + 1, float4{});
+  emu_dyn_smem = emu_dyn.data();
+  blockDim.x = (unsigned)block;
+  run_groups(grid, block, block, body);
+}
+#ifndef EMU_SMEM_OPTIN
+#define EMU_SMEM_OPTIN 232448
+#endif
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMU_SMEM_OPTIN;
+  return 0;
+}
+template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
+// cp.async: a plain copy, done when it is issued
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) { memcpy(dst, src, n); }
+inline void __pipeline_commit() {}
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline void __pipeline_wait_prior(size_t) {}
 """
 
 _TRAVERSE_ENTRY = r"""

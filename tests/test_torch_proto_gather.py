@@ -188,29 +188,36 @@ def same_bits(a, b):
         a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
 
 
-_BLOCK_EMU = r"""
-inline void __syncthreads() { tl_group->wait(); }
-"""
-
-
-def emu_build(name, entry, tmp):
-    """csrc/<name>.cu with ``_EMU`` (and a block barrier; ``__shared__``
-    arrays become statics, one block runs at a time) in place of the CUDA
-    headers, without its launch configurations, plus ``entry`` → ctypes
-    library."""
+def emu_build(name, entry, tmp, defines="", launch=False):
+    """csrc/<name>.cu with ``_EMU`` in place of the CUDA headers, plus
+    ``entry``, → ctypes library; ``defines`` go before everything. Without
+    ``launch`` the launch configurations are dropped (``entry`` runs the
+    kernels) and ``__shared__`` arrays become statics (one block runs at a
+    time). With it, each launch runs its grid through ``emu_launch`` and
+    ``extern __shared__`` arrays point into that launch's dynamic shared
+    memory, so the source's own C entry points run. Its headers
+    (``csrc/*.cuh``) are included as they are."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ on this machine to build the kernel emulation")
     with open(os.path.join(CSRC, name + ".cu")) as f:
         src = f.read()
-    src = re.sub(r"#include <cuda_runtime\.h>\n", "", src)
-    src = re.sub(r"<<<[^>]*>>>", "", src).replace("__shared__", "static")
+    src = re.sub(r"#include <cuda_\w+\.h>\n", "", src)
+    if launch:
+        src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);",
+                     r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
+        src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                     r"\1* \2 = (\1*)emu_dyn_smem;", src)
+    else:
+        src = re.sub(r"<<<[^>]*>>>", "", src)
+    src = src.replace("__shared__", "static")
     path = os.path.join(tmp, name + ".cpp")
     with open(path, "w") as f:
-        f.write(_EMU + _BLOCK_EMU + src + entry)
+        f.write(defines + _EMU + src + entry)
     lib = os.path.join(tmp, "lib%s_emu.so" % name)
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-pthread", "-w", "-o", lib, path], check=True)
+                    "-fPIC", "-pthread", "-w", "-I", CSRC, "-o", lib, path],
+                   check=True)
     return ctypes.CDLL(lib)
 
 
@@ -224,31 +231,31 @@ extern "C" void emu_gather_rows(const float* tab, long long rows, int cols,
 }
 """
 
-_SUM_ENTRY = r"""
-extern "C" void emu_gather_sum(const float* tab, long long rows, int cols,
-                               const int32_t* idx, long long k, float* out) {
-  run_groups(1, 32, 32, [&] {
-    gather_sum_kernel((const float4*)tab, rows, cols >> 2, idx, k, (float4*)out);
-  });
-}
-extern "C" void emu_gather_chain(const float* tab, int rows, int cols,
-                                 const float* seed, int steps, float* out) {
-  run_groups(1, 32, 32, [&] {
-    gather_chain_kernel((const float4*)tab, rows, cols >> 2, seed, steps,
-                        (float4*)out);
-  });
-}
+# kernel E at an emulated size: gather_sum blocks of 5 warps (as on the
+# card, warps 0-3 add one component each and the rest copy), gather_chain
+# blocks of one warp (one thread adds all four components, every thread
+# copies), stages of 16 rows, chains listed 96 steps at a time in chunks of
+# 8, and 8 KB of shared memory a block, so that a table of more than ~600
+# rows takes the path that walks the table
+E_EMU_DEFINES = """
+#define SUM_THREADS 160
+#define CHAIN_THREADS 32
+#define STAGE 16
+#define SEQ 96
+#define JUMP 8
+#define EMU_SMEM_OPTIN 8192
 """
 
 
 @pytest.fixture(scope="module")
 def emu_gather_sum(tmp_path_factory):
-    """csrc/gather_sum.cu on the CPU (also used for ``gather_chain``)."""
-    lib = emu_build("gather_sum", _SUM_ENTRY,
-                    str(tmp_path_factory.mktemp("emu_gather_sum")))
+    """csrc/gather_sum.cu on the CPU through its own C entry points
+    (``lum_gather_sum``, ``lum_gather_chain``), at the sizes above."""
+    lib = emu_build("gather_sum", "", str(tmp_path_factory.mktemp("emu_gather_sum")),
+                    E_EMU_DEFINES, launch=True)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.emu_gather_sum.argtypes = [p, i64, i32, p, i64, p]
-    lib.emu_gather_chain.argtypes = [p, i32, i32, p, i32, p]
+    lib.lum_gather_sum.argtypes = [p, i64, i32, p, i64, p, p]
+    lib.lum_gather_chain.argtypes = [p, i32, i32, p, i32, p, p]
     return lib
 
 
@@ -280,15 +287,22 @@ def test_kernel_d_source_matches_plain(emu_gather_rows, mode, bf16):
     assert same_bits(out, ref)
 
 
-def test_kernel_e_sum_source_matches_plain(emu_gather_sum):
-    """csrc/gather_sum.cu's ``gather_sum`` (one warp, 16 rows in flight)
-    equals the ordered plain sum bit for bit, on a K that is no multiple of
-    32 and on a 64-column table (half the lanes idle)."""
-    rng = np.random.default_rng(14)
-    for cols, k in ((PG.COLS, 1000), (64, 77)):
-        tab = torch.as_tensor(rng.standard_normal((S, cols)).astype(np.float32))
-        idx = torch.as_tensor(rng.integers(-2 * S, 2 * S, k).astype(np.int32))
-        out = torch.empty((1, cols))
-        emu_gather_sum.emu_gather_sum(tab.data_ptr(), S, cols, idx.data_ptr(), k,
-                                      out.data_ptr())
-        assert torch.equal(out, PG.gather_sum_plain(tab, idx)), cols
+@pytest.mark.parametrize("cols,k", [(128, 300), (12, 77), (4, 5), (64, 48),
+                                    (128, 1), (12, 0)],
+                         ids=["c128-k300", "c12-k77", "c4-k5-one-stage",
+                              "c64-k48-whole-stages", "c128-k1", "c12-k0"])
+def test_kernel_e_sum_source_matches_plain(emu_gather_sum, cols, k):
+    """csrc/gather_sum.cu's ``gather_sum`` (a block per float4 column group,
+    rows through a two-stage cp.async ring, each component added in index
+    order) equals the ordered plain sum bit for bit: K inside one stage, in
+    whole stages and not, 0 and 1; 4, 12, 64 and 128 columns; indices
+    negative and out of range both ways."""
+    rng = np.random.default_rng(14 + k)
+    tab = torch.as_tensor(rng.standard_normal((S, cols)).astype(np.float32))
+    idx = rng.integers(-2 * S, 2 * S, k).astype(np.int32)
+    idx[:min(k, len(EDGE))] = EDGE[:k]
+    idx = torch.as_tensor(idx)
+    out = torch.full((1, cols), float("nan"))
+    assert emu_gather_sum.lum_gather_sum(tab.data_ptr(), S, cols, idx.data_ptr(), k,
+                                         out.data_ptr(), None) == 0
+    assert torch.equal(out, PG.gather_sum_plain(tab, idx))

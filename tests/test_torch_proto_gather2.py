@@ -25,7 +25,7 @@ from jax.experimental import pallas as pl
 
 from luminary_tpu_torch.tools import proto_gather2 as PG2
 from test_torch_proto_gather import (PallasRecorder, emu_build,  # noqa: F401
-                                     emu_gather_sum, load_tool)
+                                     emu_gather_sum, load_tool, same_bits)
 
 torch.set_num_threads(1)
 
@@ -114,18 +114,50 @@ def test_tool_runs_on_cpu():
     assert not torch.equal(none, loop) and bool(torch.isfinite(none).any())
 
 
-def test_kernel_e_chain_source_matches_plain(emu_gather_sum):  # noqa: F811
-    """csrc/gather_sum.cu's ``gather_chain`` (one warp, the next index from
-    lane 0) equals the plain chain bit for bit, branch and negative seed
-    included."""
-    rng = np.random.default_rng(23)
-    tab = torch.as_tensor((2.0 * rng.standard_normal((S, PG2.COLS))).astype(np.float32))
-    for seed in (-0.0123, 0.0004567):
-        s = torch.tensor([seed], dtype=torch.float32)
-        out = torch.empty((1, PG2.COLS))
-        emu_gather_sum.emu_gather_chain(tab.data_ptr(), S, PG2.COLS, s.data_ptr(),
-                                        1024, out.data_ptr())
-        assert torch.equal(out, PG2.gather_chain_plain(tab, seed, 1024)), seed
+# (rows, columns, steps, seed, table): 2 * randn tables take the row[1] > 2
+# branch; on 40 rows 300 steps go round the chain's cycle; 2,000 rows exceed
+# the emulated shared memory, so the rows are listed by walking the table;
+# "nan" holds NaN in column 0 of every seventh row
+_CHAIN_CASES = {
+    "s256-c128-negative-seed": (S, 128, 400, -0.0123, "randn2"),
+    "s256-c128-positive-seed": (S, 128, 400, 0.0004567, "randn2"),
+    "steps0": (S, 12, 0, 0.0004567, "randn2"),
+    "steps1": (S, 12, 1, -0.0123, "randn2"),
+    "s40-c12-cycles": (40, 12, 300, -0.0123, "randn2"),
+    "s40-c4-one-pass": (40, 4, 30, 0.0004567, "randn2"),
+    "s256-c12-nan-col0": (S, 12, 200, 0.0004567, "nan"),
+    "s2000-c12-walks-table": (2000, 12, 250, -0.0123, "randn2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CHAIN_CASES))
+def test_kernel_e_chain_source_matches_plain(emu_gather_sum, case):  # noqa: F811
+    """csrc/gather_sum.cu's ``gather_chain`` (the visited rows listed through
+    next-index and jump tables in shared memory, or by walking the table
+    where they do not fit, then summed in order like ``gather_sum``) equals
+    the plain chain bit for bit: the branch taken, negative seeds, 0 and 1
+    steps, chains that cycle, passes of the list whole and not, a NaN in
+    column 0, 4, 12 and 128 columns."""
+    rows, cols, steps, seed, kind = _CHAIN_CASES[case]
+    rng = np.random.default_rng(23 + rows + steps)
+    tab = (2.0 * rng.standard_normal((rows, cols))).astype(np.float32)
+    if kind == "nan":
+        tab[::7, 0] = np.nan
+    if kind == "randn2" and steps > 100:
+        path = PG2.chain_rows(tab, seed, steps)
+        assert (tab[path, 1] > 2).sum() > 5
+    if case == "s40-c12-cycles":
+        assert steps > rows
+    tab = torch.as_tensor(tab)
+    s = torch.tensor([seed], dtype=torch.float32)
+    out = torch.full((1, cols), float("nan"))
+    assert emu_gather_sum.lum_gather_chain(tab.data_ptr(), rows, cols, s.data_ptr(),
+                                           steps, out.data_ptr(), None) == 0
+    ref = PG2.gather_chain_plain(tab, seed, steps)
+    if kind == "nan":  # column 0 sums NaN rows: its NaN equals any NaN
+        assert same_bits(out, ref) and bool(torch.isnan(ref[0, 0]))
+    else:
+        assert torch.equal(out, ref)
 
 
 _SLAB_ENTRY = r"""

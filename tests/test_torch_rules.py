@@ -35,6 +35,7 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.tools.proto_gather2\n"
         "import luminary_tpu_torch.tools.microbench_colext\n"
         "import luminary_tpu_torch.tools.time_render\n"
+        "import luminary_tpu_torch.ops.libm\n"
         "import luminary_tpu_torch.io, luminary_tpu_torch.io.qoi\n"
         "import luminary_tpu_torch.io.lum_v5\n"
         "import luminary_tpu_torch.host.host\n"

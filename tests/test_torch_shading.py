@@ -140,15 +140,24 @@ def test_frame_eval():
 
 @pytest.mark.parametrize("blue_noise", [False, True])
 def test_material_sample(blue_noise):
+    """Against the reference's frame and sample compiled together with
+    ``jax.jit``, as its renderer runs them: the port rounds the sampled
+    direction as that compiled code does (fused multiply-adds, glibc's sin
+    and cos), which the eager ops do not."""
     mj, mt, ns, wo, rng = _materials(3)
     pid, px, py = _ids(4)
     bn_j, bn_t = _bn(px, py) if blue_noise else (None, None)
     eta = (0.6 + rng.random(N)).astype(np.float32)
-    fj = jmat.make_frame(mj, _vj(ns), _vj(wo))
+    jggx.ggx_energy_lut()  # cached outside the trace
+
+    @jax.jit
+    def sample_j(m, n_, w_, p_, e_, b_):
+        return jmat.material_sample(m, jmat.make_frame(m, n_, w_), n_, w_, p_,
+                                    jnp.uint32(9), 1, eta_rel=e_, bn=b_)
+
     ft = tmat.make_frame(mt, _vt(ns), _vt(wo), torch.as_tensor(tggx.ggx_energy_quad()))
-    wj, wwj, pdfj, dj, trj = jmat.material_sample(
-        mj, fj, _vj(ns), _vj(wo), jnp.asarray(pid), jnp.uint32(9), 1,
-        eta_rel=jnp.asarray(eta), bn=bn_j)
+    wj, wwj, pdfj, dj, trj = sample_j(mj, _vj(ns), _vj(wo), jnp.asarray(pid),
+                                      jnp.asarray(eta), bn_j)
     wt, wwt, pdft, dt, trt = tmat.material_sample(
         mt, ft, _vt(ns), _vt(wo), torch.as_tensor(pid.astype(np.int64)),
         torch.tensor(9), 1, eta_rel=torch.as_tensor(eta), bn=bn_t)
