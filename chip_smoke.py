@@ -14,9 +14,13 @@ Phases, one or more lines each; any failure exits non-zero:
    must be a hit of the kernel that a brute-force test over all triangles
    confirms, never one that only the plain walk finds), the unplanar ray
    pack, kernel A (every table width and sub-stride the path uses), kernel
-   C, and the random streams (card against CPU), each with its time, bound,
-   plain time and, for kernel A and unplanar, a library yardstick and
-   graph-replay device times beside the eager ones. With
+   C, the rounding kernels (``libm_sincos`` and ``fma32``; ``csrc/shading.cu``'s
+   camera ray, hit point, frame, BSDF evaluation and sample against their
+   plain versions run on the CPU, and its stars against theirs on the card,
+   whose ``exp`` is the kernel's; each timed out of L2, the five over 40
+   launches with their median), and the random streams (card against CPU),
+   each with its time, bound, plain time and, for kernel A and unplanar, a
+   library yardstick and graph-replay device times beside the eager ones. With
    ``--compare DIR`` (a directory holding an earlier version's
    ``traverse_wide.cu``, ``light_tree_descend.cu`` or ``gather_sum.cu``),
    that build is timed in turns with the port's kernels B and C on the same
@@ -85,7 +89,12 @@ Phases, one or more lines each; any failure exits non-zero:
    seconds, the peak memory of a sample, Mrays/s beside tree-1080p's, the
    launches from 0 of A, unplanar, B closest and any-hit and C, the rays of
    each any-hit launch, the time per call of the ocean march, the cloud
-   march and the caustic connection; kernel B any-hit on (b)'s 5-segment
+   march and the caustic connection; ``csrc/clouds.cu`` bit for bit against
+   its plain versions on the card, each launch timed beside its operations
+   bound (the density evaluations the lanes need): the march at (a)'s miss
+   lanes and at the HDRI bake's 2048 x 1024 lanes, the cloud shadows at
+   (a)'s sun candidates, with the march's ms a call and the bake's seconds;
+   kernel B any-hit on (b)'s 5-segment
    shadow batch and its first 3 segments under phase 3's rule; the card
    against the plain CPU path at 64x36 on the same sky tables (the card's
    own sky bake held against the CPU's off the stars' texels, RMSE/scale
@@ -132,6 +141,12 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 ADD_CYCLES = 4              # latency of a dependent fp32 add (kernel E's floor)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+FP64_FLOPS = 34e12          # H100 SXM fp64 outside the tensor cores
+# operations of one cloud density evaluation in csrc/clouds.cu: 72 glibc
+# sines of 13 float64 flops each (an FMA counted as 2), and ~1,530 float32
+# flops (72 hashes of ~15, 9 octaves of ~47, ~30 for the height stack)
+DENSITY_FP64 = 72 * 13
+DENSITY_FP32 = 1530
 # operations of one child slab test and one Moller-Trumbore test, as written
 # in csrc/traverse_wide.cu (adds, multiplies, min/max, compares, 1 divide)
 SLAB_OPS = 25
@@ -567,10 +582,11 @@ def kernel_a_case(label, table, idx, n_cols, s, dev, cuda_ms, bound, smi) -> dic
                 bound_by=b_by)
 
 
-def cold_launch_ms(fn, dev, reps=20) -> float:
-    """Device milliseconds of one ``fn()`` with its operands out of L2: before
-    each call a 1 GB write evicts the 50 MB L2, and CUDA events bracket the
-    call alone (the write keeps the card busy while the host enqueues it)."""
+def cold_launch_times(fn, dev, reps=20) -> list:
+    """Device milliseconds of ``reps`` calls of ``fn()``, each with its
+    operands out of L2: before each call a 1 GB write evicts the 50 MB L2,
+    and CUDA events bracket the call alone (the write keeps the card busy
+    while the host enqueues it)."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.int32, device=dev)
@@ -584,7 +600,13 @@ def cold_launch_ms(fn, dev, reps=20) -> float:
         fn()
         e.record()
     torch.cuda.synchronize(dev)
-    return sum(s.elapsed_time(e) for s, e in ev) / reps
+    return [s.elapsed_time(e) for s, e in ev]
+
+
+def cold_launch_ms(fn, dev, reps=20) -> float:
+    """The mean of :func:`cold_launch_times`."""
+    t = cold_launch_times(fn, dev, reps)
+    return sum(t) / len(t)
 
 
 # csrc/shading.cu's kernels: (the public wrapper, the bytes a lane reads and
@@ -596,6 +618,7 @@ SHADING = {
     "make_frame": (116, 70),
     "frame_eval": (113, 160),
     "material_sample": (143, 520),
+    "stars": (36, 100),
 }
 
 
@@ -705,14 +728,18 @@ def shading_kernels(dev, smi, r, bound, cuda_ms) -> list:
         if name == "material_sample":
             got, want = got[:3] + got[4:], want[:3] + want[4:]
         err, nd = compare(got, want)
-        ms = cold_launch_ms(kern, dev)
+        times = cold_launch_times(kern, dev, reps=40)
+        ms = sum(times) / len(times)
+        med = float(np.median(times))
         plain_ms = cuda_ms(lambda: plain(args), iters=3, warmup=1)
         b_bytes, b_ops = SHADING[name]
         b_ms, b_by = bound(b_bytes * n, b_ops * n)
         log("[shading %s] %d lanes against the plain version on the CPU (%.1f s):"
-            " %d values differ, max abs err %.3g; %.4f ms a launch (out of L2), "
-            "plain on the card %.3f ms, bound %.4f ms (%s) | %s" % (
-                name, n, cpu_s, nd, err, ms, plain_ms, b_ms, b_by, smi))
+            " %d values differ, max abs err %.3g; %.4f ms a launch (out of L2; "
+            "the mean of %d, median %.4f, min %.4f, max %.4f), plain on the card "
+            "%.3f ms, bound %.4f ms (%s) | %s" % (
+                name, n, cpu_s, nd, err, ms, len(times), med, min(times),
+                max(times), plain_ms, b_ms, b_by, smi))
         assert nd == 0, (name, nd, err)
         rows.append(dict(
             name=name, route="cuda", source="luminary_tpu_torch/csrc/shading.cu",
@@ -725,27 +752,75 @@ def shading_kernels(dev, smi, r, bound, cuda_ms) -> list:
                          "material_sample": "luminary_tpu/ops/material.py:171",
                      }[name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, lanes=n, plain_cpu_s=cpu_s))
+            bound_by=b_by, library_ms=None, lanes=n, plain_cpu_s=cpu_s,
+            cold_median_ms=med, cold_ms=times))
+
+    # the stars (lum_stars), at the deferred sky's width: half the lanes
+    # within ~2e-4 rad of a star, where one ulp of the cosine moves the glow
+    # by ~30 %, half uniform; against the plain version on the card, whose
+    # exp is the kernel's expf (PyTorch's CPU exp rounds otherwise)
+    from luminary_tpu_torch.ops import sky as S
+
+    sky = r.device_scene.sky
+    g = S.STARS_GRID
+    cells = torch.as_tensor(rng.integers(0, g * g, n // 2))
+    h0 = S._hash_u32(((cells * 0x9E3779B9) + (int(sky.stars_seed) & 0xFFFFFFFF))
+                     & 0xFFFFFFFF)
+    su = ((cells % g).double() + S._hash01((h0 + 1) & 0xFFFFFFFF).double()) / g
+    sv = ((cells // g).double() + S._hash01((h0 + 2) & 0xFFFFFFFF).double()) / g
+    phi, theta = (su - 0.5) * 2.0 * np.pi, sv * np.pi
+    near = torch.stack([torch.cos(phi) * torch.sin(theta), torch.cos(theta),
+                        torch.sin(phi) * torch.sin(theta)], -1).numpy()
+    near = near + rng.standard_normal(near.shape) * 2e-4
+    far = rng.standard_normal((n - n // 2, 3))
+    dirs = np.concatenate([near, far])
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    d = Vec3(*(lanes(dirs[:, i]) for i in range(3)))
+    got = S.stars_radiance(sky, d)
+    want = tuple(w.cpu() for w in S._stars_radiance_plain(sky, d))
+    err, nd = compare(got, want)
+    lit = int((want[1] > 1e-3).sum())
+    ms = cold_launch_ms(lambda: S.stars_radiance(sky, d), dev)
+    plain_ms = cuda_ms(lambda: S._stars_radiance_plain(sky, d), iters=3, warmup=1)
+    b_bytes, b_ops = SHADING["stars"]
+    b_ms, b_by = bound(b_bytes * n, b_ops * n)
+    log("[shading stars] %d lanes (%d in a star's glow) against the plain "
+        "version on the card: %d values differ, max abs err %.3g; %.4f ms a "
+        "call (out of L2; the lane's cell in PyTorch, then one launch), plain "
+        "%.3f ms, bound %.4f ms (%s) | %s" % (n, lit, nd, err, ms, plain_ms, b_ms,
+                                             b_by, smi))
+    assert nd == 0 and lit > n // 4, (nd, err, lit)
+    rows.append(dict(
+        name="stars", route="cuda", source="luminary_tpu_torch/csrc/shading.cu",
+        replaces="none: the float32 rounding of the reference's compiled CPU "
+                 "code (glibc's sinf / cosf, a fused dot) at "
+                 "luminary_tpu/ops/sky.py:131",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, lanes=n, glow_lanes=lit))
     return rows
 
 
 def _path_counts(zero=False) -> dict:
     """The launch counts of the main path's kernels (set to 0 first when
     ``zero``)."""
+    from luminary_tpu_torch.ops import clouds as CL
     from luminary_tpu_torch.ops import libm
     from luminary_tpu_torch.ops import light_tree as LT
     from luminary_tpu_torch.ops import rowops as RO
+    from luminary_tpu_torch.ops import sky as S
     from luminary_tpu_torch.ops import traverse as TR
     from luminary_tpu_torch.ops import camera as C
     from luminary_tpu_torch.ops import material as M
     from luminary_tpu_torch.ops import vec as V
     from luminary_tpu_torch.ops.vec import fma32
 
-    shading = dict(camera_ray=C.generate_camera_rays, ray_point=V.ray_point,
+    counted = dict(camera_ray=C.generate_camera_rays, ray_point=V.ray_point,
                    make_frame=M.make_frame, frame_eval=M.frame_eval,
-                   material_sample=M.material_sample)
+                   material_sample=M.material_sample, stars=S.stars_radiance,
+                   cloud_march=CL.cloud_march,
+                   cloud_shadow=CL.cloud_sun_transmittance)
     if zero:
-        for fn in shading.values():
+        for fn in counted.values():
             fn.launches = 0
         fma32.launches = 0
         libm.libm_sincos.launches = 0
@@ -764,20 +839,27 @@ def _path_counts(zero=False) -> dict:
         "light_tree_descend": LT.light_tree_descend.launches,
         "libm_sincos": libm.libm_sincos.launches,
         "fma32": fma32.launches,
-        **{k: fn.launches for k, fn in shading.items()},
+        **{k: fn.launches for k, fn in counted.items()},
     }
 
 
-# the kernels that only the cloud hash launches (ops/clouds.py): a path
-# without clouds runs them no time
-CLOUD_ONLY = ("fma32", "libm_sincos")
+# kernels that no render path launches: they stay in the package, held
+# against their plain versions in phase 3, and the plain cloud march and
+# star field run them on the card
+NO_RENDER = ("fma32", "libm_sincos")
+# the kernels of the cloud march and the cloud shadows: a path without
+# clouds runs them no time
+CLOUDS = ("cloud_march", "cloud_shadow")
 
 
-def _assert_ran(counts, idle=CLOUD_ONLY, label=""):
+def _assert_ran(counts, idle=CLOUDS, label=""):
     """Every kernel of the path was launched, but those in ``idle``, which
-    this path does not run."""
-    missing = [k for k, v in counts.items() if v == 0 and k not in idle]
+    this path does not run; those in NO_RENDER were launched no time."""
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in idle and k not in NO_RENDER]
     assert not missing, (label, missing, counts)
+    ran = [k for k in NO_RENDER if counts[k]]
+    assert not ran, (label, "launched on a render path", ran, counts)
 
 
 # `python -m luminary_tpu_torch ARGS` as runpy runs it, printing the kernel
@@ -1308,6 +1390,142 @@ def content_path(dev, smi, cuda_ms, bound) -> dict:
     return out
 
 
+def _density_bound_ms(evals) -> float:
+    """The least time for ``evals`` cloud density evaluations: their float64
+    flops at the fp64 rate or their float32 flops at the fp32 rate, the
+    larger (the two pipes run side by side); the bytes are far below."""
+    return max(evals * DENSITY_FP64 / FP64_FLOPS,
+               evals * DENSITY_FP32 / FP32_FLOPS) * 1e3
+
+
+class _LaunchTimes:
+    """CUDA events around each launch of the kernel entry points ``names``
+    (``kernels.entry``'s functions, wrapped while the block runs)."""
+
+    def __init__(self, names):
+        self.rec = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+
+        from luminary_tpu_torch import kernels
+
+        self.orig = orig = kernels.entry
+
+        def entry(name, fn, argtypes):
+            f = orig(name, fn, argtypes)
+            if fn not in self.rec:
+                return f
+
+            def timed(*a):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                rc = f(*a)
+                e1.record()
+                self.rec[fn].append((e0, e1))
+                return rc
+            return timed
+        kernels.entry = entry
+        return self
+
+    def __exit__(self, *exc):
+        from luminary_tpu_torch import kernels
+
+        kernels.entry = self.orig
+
+    def ms(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.rec[name]]
+
+
+class _Capture:
+    """The arguments of the first call of each of ``ops/clouds.py``'s kernel
+    wrappers while the block runs (the launch counters stay on the public
+    functions)."""
+
+    NAMES = ("_cloud_march_kernel", "_cloud_sun_transmittance_kernel")
+
+    def __enter__(self):
+        from luminary_tpu_torch.ops import clouds as CL
+
+        self.args, self.orig = {}, {n: getattr(CL, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            def wrap(*a, _n=n, _fn=fn):
+                self.args.setdefault(_n, a)
+                return _fn(*a)
+            setattr(CL, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        from luminary_tpu_torch.ops import clouds as CL
+
+        for n, fn in self.orig.items():
+            setattr(CL, n, fn)
+
+
+def _cloud_kernel_check(label, name, args, smi) -> dict:
+    """One call of a cloud kernel wrapper (``name``: march or shadow) on the
+    captured arguments against its plain version on the card, bit for bit:
+    the kernel's launches timed alone (CUDA events), the plain call timed,
+    the density evaluations the plain version makes (the kernel makes the
+    same) counted for the bound."""
+    import torch
+
+    from luminary_tpu_torch.ops import clouds as CL
+
+    march = name == "cloud_march"
+    kern = CL._cloud_march_kernel if march else CL._cloud_sun_transmittance_kernel
+    plain = CL._cloud_march_plain if march else CL._cloud_sun_transmittance_plain
+    entry = "lum_cloud_march" if march else "lum_cloud_shadow"
+    lanes = args[1].x.shape[0]
+    kern(*args)  # warm (the build, the first launch)
+    with _LaunchTimes([entry]) as lt:
+        got = kern(*args)
+        launch_ms = lt.ms(entry)
+    evals, density = {}, CL.cloud_density
+
+    def counted(cl, pos, layer=0, fused=False):
+        evals[layer] = evals.get(layer, 0) + pos.x.numel()
+        return density(cl, pos, layer, fused)
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    CL.cloud_density = counted
+    try:
+        e0.record()
+        want = plain(*args)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        CL.cloud_density = density
+    plain_ms = e0.elapsed_time(e1)
+    flat = lambda v: [*v[0], v[1]] if march else [v]  # noqa: E731
+    exact = all(same_bits(a, b) for a, b in zip(flat(got), flat(want)))
+    n_evals = sum(evals.values())
+    b_ms = _density_bound_ms(n_evals)
+    ms = sum(launch_ms)
+    layers = sorted(evals)
+    per_layer = ", ".join(
+        "layer %d %.3f ms against its bound %.3f (%d evaluations)" % (
+            ly, t, _density_bound_ms(evals[ly]), evals[ly])
+        for ly, t in zip(layers, launch_ms)) if march else ""
+    log("[%s %s] %d lanes: %d launches, %.3f ms (%s%s), %.0f %% of the "
+        "operations bound %.3f ms (%d density evaluations); plain on the card "
+        "%.1f ms; bit for bit: %s | %s" % (
+            name, label, lanes, len(launch_ms), ms,
+            " + ".join("%.3f" % t for t in launch_ms),
+            "; " + per_layer if per_layer else "", 100.0 * b_ms / ms, b_ms,
+            n_evals, plain_ms, exact, smi))
+    assert exact, (name, label)
+    return dict(case=label, lanes=lanes, launches=len(launch_ms),
+                launch_ms=launch_ms, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="operations", density_evals=n_evals,
+                density_evals_by_layer=evals)
+
+
 def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
     """Phase 9: sky and sea at full width (``outdoor_scene(1920, 1080, 4)``:
     the bench field at sea, the analytic ocean with water scattering and
@@ -1386,11 +1604,23 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
         v = {}
         scene = outdoor_scene(W, H, 4, sky_mode=mode)
         if mode == 1:
+            _path_counts(zero=True)
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            D.pack_sky(scene, dev)
-            torch.cuda.synchronize()
+            with _Capture() as bake:
+                D.pack_sky(scene, dev)
+                torch.cuda.synchronize()
             v["hdri_bake_s"] = time.monotonic() - t0
+            v["hdri_bake_launches"] = bc = _path_counts()
+            log("[sky-sea b] the HDRI bake at %d x %d: %.3f s (the cloud "
+                "march's plain version alone takes seconds: see the next "
+                "line); launches %s | %s" % (
+                    bake.args["_cloud_march_kernel"][1].x.shape[0] // 1024, 1024,
+                    v["hdri_bake_s"], {k: c for k, c in bc.items() if c}, smi))
+            assert bc["cloud_march"] == 2 and bc["stars"] == 1, bc
+            v["bake_march"] = _cloud_kernel_check(
+                "HDRI bake", "cloud_march", bake.args["_cloud_march_kernel"], smi)
+            del bake
         t0 = time.monotonic()
         r = Renderer(scene, device=dev)
         torch.cuda.synchronize()
@@ -1416,9 +1646,22 @@ def sky_sea_path(dev, smi, cuda_ms, bound, tree) -> dict:
         v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
                  mrays=r._last_rays_traced / dt / 1e6, launches=counts,
                  rays_per_sample=r._last_rays_per_sample)
-        # the cloud hash runs where the clouds are marched (sky mode 0)
-        _assert_ran(counts, idle=() if cfg.use_clouds else CLOUD_ONLY, label=label)
-        calls, sizes, saved = instrumented_sample(r, capture=mode == 1)
+        # the clouds are marched, and the stars lit, in sky mode 0 only
+        _assert_ran(counts, idle=() if cfg.use_clouds else CLOUDS + ("stars",),
+                    label=label)
+        with _Capture() as cap:
+            calls, sizes, saved = instrumented_sample(r, capture=mode == 1)
+        if cfg.use_clouds:
+            ms = calls["cloud_march"][0]
+            log("[sky-sea a] the miss-side cloud march: %.1f ms a call, the "
+                "PyTorch setup of each layer's launch included | %s" % (ms, smi))
+            v["march"] = _cloud_kernel_check(
+                "outdoor-1080p (a) misses", "cloud_march",
+                cap.args["_cloud_march_kernel"], smi)
+            v["shadow"] = _cloud_kernel_check(
+                "outdoor-1080p (a) sun candidates", "cloud_shadow",
+                cap.args["_cloud_sun_transmittance_kernel"], smi)
+        del cap
         v["march_ms"] = {m: dict(calls=len(c), ms_per_call=float(np.mean(c)),
                                  ms=[float(x) for x in c])
                          for m, c in calls.items()}
@@ -1670,7 +1913,7 @@ def optics_path(dev, smi, cuda_ms, bound, tree, size=(1920, 1080)) -> dict:
                  mrays=r._last_rays_traced / dt / 1e6, launches=counts,
                  rays_per_sample=r._last_rays_per_sample)
         # the lens camera traces its own primary rays (no camera_ray)
-        _assert_ran(counts, idle=CLOUD_ONLY + ("camera_ray",), label=label)
+        _assert_ran(counts, idle=CLOUDS + ("camera_ray",), label=label)
         calls, saved = instrumented_sample(r, ptable, spec_table)
         v["ms_per_call"] = {f: dict(calls=len(c), ms_per_call=float(np.mean(c)),
                                     ms=[float(x) for x in c])
@@ -2763,11 +3006,23 @@ def main() -> int:
     sky_sea = sky_sea_path(dev, smi, cuda_ms, bound, report["tree_1080p"])
     report["sky_sea"] = sky_sea
     by_name["traverse_wide.any_hit"]["sky_sea_batches"] = sky_sea["b"]["kernel_b"]
+    for name, key, ref in (("cloud_march", "march", "luminary_tpu/ops/clouds.py:188"),
+                           ("cloud_shadow", "shadow", "luminary_tpu/ops/clouds.py:251")):
+        c = sky_sea["a"][key]
+        cases = [c] + ([sky_sea["b"]["bake_march"]] if key == "march" else [])
+        kern.append(dict(
+            name=name, route="cuda", source="luminary_tpu_torch/csrc/clouds.cu",
+            replaces="none: libm_sincos (csrc/libm_sincos.cu) and the cloud "
+                     "hash's fma32 sites redesigned as the loop that called "
+                     "them (%s)" % ref,
+            max_abs_err=0.0, ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            cases=cases))
     for k in kern:
         for v in ("a", "b"):
             if k["name"] in sky_sea[v]["launches"]:
                 k["sky_sea_%s_launches" % v] = sky_sea[v]["launches"][k["name"]]
-        if k["name"] in CLOUD_ONLY:  # their path is the cloud march's
+        if k["name"] in CLOUDS:  # their path is outdoor-1080p (a)'s
             k["launches"] = k["sky_sea_a_launches"]
 
     # ---- 10. optics at full width: particles, spectral, the lens, sort ----

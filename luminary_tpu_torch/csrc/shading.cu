@@ -13,6 +13,8 @@
 //   lum_make_frame      ops/material.py _make_frame_plain
 //   lum_frame_eval      ops/material.py _frame_eval_plain
 //   lum_material_sample ops/material.py _material_sample_plain
+//   lum_stars           ops/sky.py _stars_radiance_plain (the star and its
+//                       glow; the lane's grid cell comes in from PyTorch)
 // On the card a plain version is ~25-300 elementwise launches (about 1,000
 // a tree-1080p sample in all); each kernel here is one. The code follows
 // its plain version op for op: __fmaf_rn where the plain version calls
@@ -477,6 +479,54 @@ static int launch(K kernel, const void* const* ptrs, const long long* strides,
   return (int)cudaGetLastError();
 }
 
+// ---- ops/sky.py ----
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+__device__ __forceinline__ float hash01(uint32_t x) {
+  return (float)hash_u32(x) * 0x1p-32f;
+}
+
+// _stars_radiance_plain: in dx, dy, dz, the cell gx, gy, its hash h0 (int
+// bits), the intensity; c[0] the probability of a star in a cell, c[1] 1
+// for the fused dot (else op by op); out r, g, b
+__global__ void stars_kernel(Ins in, Outs o, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const V3 d = {ld(in, 0, i), ld(in, 1, i), ld(in, 2, i)};
+  const int gx = ldi(in, 3, i), gy = ldi(in, 4, i);
+  const uint32_t h0 = (uint32_t)ldi(in, 5, i);
+  const float intensity = ld(in, 6, i);
+  const bool present = hash01(h0) < in.c[0];
+  const float su = ((float)gx + hash01(h0 + 1u)) / 64.0f;
+  const float sv = ((float)gy + hash01(h0 + 2u)) / 64.0f;
+  const float phi = (su - 0.5f) * F32_2PI;
+  const float theta = sv * F32_PI;
+  const float sin_t = glibc_sincosf(theta, 0);
+  const V3 sd = {glibc_sincosf(phi, 1) * sin_t, glibc_sincosf(theta, 1),
+                 glibc_sincosf(phi, 0) * sin_t};
+  const float cos_d = cl(in.c[1] != 0.0f ? fma32(d.z, sd.z, fma32(d.y, sd.y, d.x * sd.x))
+                                         : dot(d, sd),
+                         -1.0f, 1.0f);
+  const float ang = sqrtf(cmax(2.0f * (1.0f - cos_d), 0.0f));
+  const float radius = 3e-4f * (0.5f + hash01(h0 + 3u));
+  const float glow = expf(-(ang * ang) / cmax((2.0f * radius) * radius, 1e-12f));
+  const float h4 = hash01(h0 + 4u);
+  const float h4sq = h4 * h4;
+  const float brightness = (0.2f + 0.8f * (h4sq * h4sq)) * intensity;
+  const float v = present ? glow * brightness : 0.0f;
+  const float warm = hash01(h0 + 5u);
+  st(o, 0, i, v * (0.8f + 0.4f * warm));
+  st(o, 1, i, v);
+  st(o, 2, i, v * (1.2f - 0.4f * warm));
+}
+
 #define ENTRY(name)                                                            \
   extern "C" int lum_##name(const void* const* ptrs, const long long* strides, \
                             int n_in, const float* consts, int n_const,        \
@@ -491,3 +541,4 @@ ENTRY(ray_point)
 ENTRY(make_frame)
 ENTRY(frame_eval)
 ENTRY(material_sample)
+ENTRY(stars)

@@ -26,7 +26,7 @@ import time
 
 SOURCES = ("gather_soa", "traverse_wide", "light_tree_descend", "gather_rows",
            "gather_sum", "slab_body", "transpose", "libm_sincos", "fma32",
-           "shading")
+           "shading", "clouds")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(

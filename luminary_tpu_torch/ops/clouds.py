@@ -12,12 +12,17 @@ sin is the one the compiled code calls, glibc's ``sinf`` (``ops/libm.py``),
 the same on the card and the CPU. On equal inputs the march then agrees
 with the reference's compiled march lane by lane (tests/test_torch_clouds.py).
 
-The reference's step loops are kept as loops where they carry state (the
-transmittance and radiance of a march). The densities a march reads do not
-depend on that state, so each layer's densities (every step, and every
-shadow step of every step) are evaluated as stacked tensors, over the
-lanes in blocks of at most CLOUD_BLOCK elements; each element is the
-reference's expression, and the shadow optical depths are summed in the
+On the card :func:`cloud_march` and :func:`cloud_sun_transmittance` are
+kernels (``csrc/clouds.cu``): one thread walks a lane's whole march, or a
+point's shadow march through every layer, with each density evaluation in
+registers. Their plain versions, which the CPU takes, are
+:func:`_cloud_march_plain` and :func:`_cloud_sun_transmittance_plain`. The
+plain march keeps the reference's step loops as loops where they carry
+state (the transmittance and radiance of a march). The densities a march
+reads do not depend on that state, so each layer's densities (every step,
+and every shadow step of every step) are evaluated as stacked tensors,
+over the lanes in blocks of at most CLOUD_BLOCK elements; each element is
+the reference's expression, and the shadow optical depths are summed in the
 reference's order. Work whose result the reference multiplies by zero is
 skipped, which changes no value: lanes that cross less than 1e-3 of a
 layer, and the shadow march of steps without density.
@@ -25,11 +30,13 @@ layer, and the shadow march of steps without density.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import kernels
 from .libm import sinf
 from .vec import Vec3, dot as vdot, fma32, sdiv
 from .volume import hg_phase_const
@@ -201,14 +208,57 @@ def cloud_march(cl: DeviceClouds, origin: Vec3, direction: Vec3, sun_dir: Vec3,
     """March the layers ``layers`` (composited low → mid → top) → ((r, g, b)
     in-scattered radiance, transmittance), each [N]. Per step: the sun
     through a short shadow march with the dual-lobe HG phase and a powder
-    term, plus 0.3 of the sky ambient."""
+    term, plus 0.3 of the sky ambient. On the card one launch of
+    ``csrc/clouds.cu`` ``lum_cloud_march`` a layer; elsewhere
+    :func:`_cloud_march_plain`. Both give the same bits."""
+    if origin.x.is_cuda:
+        return _cloud_march_kernel(cl, origin, direction, sun_dir, sun_radiance,
+                                   sky_ambient, steps, shadow_steps, layers)
+    return _cloud_march_plain(cl, origin, direction, sun_dir, sun_radiance,
+                              sky_ambient, steps, shadow_steps, layers)
+
+
+cloud_march.launches = 0
+
+
+def _layer_steps(steps: int, layer: int) -> int:
+    return max(steps // (1 + (layer == 2)), 8)  # thin cirrus: fewer
+
+
+def _step_length(span: torch.Tensor, steps: int) -> torch.Tensor:
+    """The march's step length: the compiled reference multiplies by the
+    float32 reciprocal of the step count where its code divides."""
+    return span * float(_F32(1.0 / steps))
+
+
+def _march_phase(direction: Vec3, sun_dir: Vec3) -> torch.Tensor:
+    """The march's dual-lobe HG phase: forward 0.65 and backward -0.25,
+    weighted 0.5 each."""
+    cos_sun = vdot(direction, sun_dir)
+    return (hg_phase_const(cos_sun, 0.65) * 0.5
+            + hg_phase_const(cos_sun, -0.25) * (1.0 - 0.5))
+
+
+def _shadow_offsets(cl: DeviceClouds, layer: int, shadow_steps: int):
+    """The shadow march's offsets along the sun and its step length, as
+    float32 values in host floats."""
+    shadow_len = _F32(cl.height_max[layer]) - _F32(cl.height_min[layer])
+    shadow_len = _F32(shadow_len * _F32(0.5))
+    offs = [float(_F32(_F32(k + 0.5) * shadow_len) / _F32(shadow_steps))
+            for k in range(shadow_steps)]
+    return offs, float(shadow_len / _F32(shadow_steps))
+
+
+def _cloud_march_plain(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
+                       sun_radiance, sky_ambient, steps: int, shadow_steps: int,
+                       layers: tuple):
     n = origin.x.shape[0]
     dev = origin.x.device
     rr_tot = torch.zeros(n, dtype=torch.float32, device=dev)
     rg_tot, rb_tot = rr_tot.clone(), rr_tot.clone()
     trans_tot = torch.ones(n, dtype=torch.float32, device=dev)
     for layer in layers:
-        lsteps = max(steps // (1 + (layer == 2)), 8)  # thin cirrus: fewer
+        lsteps = _layer_steps(steps, layer)
         lr, lg, lb, lt = (torch.empty(n, dtype=torch.float32, device=dev)
                           for _ in range(4))
         block = max(CLOUD_BLOCK // (lsteps * (1 + shadow_steps)), 1)
@@ -224,6 +274,98 @@ def cloud_march(cl: DeviceClouds, origin: Vec3, direction: Vec3, sun_dir: Vec3,
         rb_tot = rb_tot + trans_tot * lb
         trans_tot = trans_tot * lt
     return (rr_tot, rg_tot, rb_tot), trans_tot
+
+
+class _Clouds(ctypes.Structure):
+    """``struct Clouds`` of ``csrc/clouds.cu``."""
+
+    _fields_ = [(k, ctypes.c_float * 3) for k in (
+        "height_min", "height_max", "height_span", "coverage", "coverage_min")] + [
+        (k, ctypes.c_float) for k in (
+            "density", "offset_x", "offset_z", "seed", "weather_scale",
+            "shape_scale", "detail_scale")]
+
+
+def _clouds_struct(cl: DeviceClouds) -> _Clouds:
+    """The cloud parameters as ``cloud_density`` forms them, in float32."""
+    f3 = ctypes.c_float * 3
+    span = [float(max(_F32(hi) - _F32(lo), _F32(1e-3)))
+            for lo, hi in zip(cl.height_min, cl.height_max)]
+    return _Clouds(
+        f3(*cl.height_min), f3(*cl.height_max), f3(*span), f3(*cl.coverage),
+        f3(*cl.coverage_min), cl.density, cl.offset[0], cl.offset[1], cl.seed,
+        float(_F32(0.0004) * _F32(cl.weather_scale)),
+        float(_F32(0.0015) * _F32(cl.shape_scale)),
+        float(_F32(0.009) * _F32(cl.detail_scale)))
+
+
+def _operands(vals, dev, n: int):
+    """Kernel operands → (the tensors to keep alive, pointers, strides in
+    elements): float32 ``[n]`` lanes, or one value every lane shares (a host
+    float or a one-element tensor, stride 0)."""
+    keep, ptrs, strides = [], [], []
+    for v in vals:
+        if not isinstance(v, torch.Tensor):
+            v = torch.tensor(float(v), dtype=torch.float32, device=dev)
+        if v.device != dev or v.dtype != torch.float32:
+            raise RuntimeError("clouds: a %s operand on %s, launch on %s"
+                               % (v.dtype, v.device, dev))
+        if v.numel() == 1:
+            v = v.reshape(())
+        elif v.shape != (n,):
+            raise RuntimeError("clouds: operand of shape %s, lanes %d"
+                               % (tuple(v.shape), n))
+        keep.append(v)
+        ptrs.append(v.data_ptr())
+        strides.append(v.stride(0) if v.dim() else 0)
+    return keep, ptrs, strides
+
+
+def _stream(dev):
+    # (a CPU device only where the tests run the source on the emulation)
+    return kernels.stream_handle(dev) if dev.type == "cuda" else None
+
+
+def _cloud_march_kernel(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
+                        sun_radiance, sky_ambient, steps: int, shadow_steps: int,
+                        layers: tuple):
+    """:func:`cloud_march` through ``lum_cloud_march``: the per-lane setup
+    of :func:`_march_one_layer` in PyTorch (the layer's span, the step
+    length, the phase, the lanes that cross the layer), then one launch a
+    layer over those lanes, compositing into the totals in place."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    tot = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3)]
+    tot.append(torch.ones(n, dtype=torch.float32, device=dev))
+    phase = _march_phase(direction, sun_dir)
+    c_cl = _clouds_struct(cl)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = kernels.entry("clouds", "lum_cloud_march",
+                       [ctypes.POINTER(_Clouds), i32, i32, i32,
+                        ctypes.POINTER(ctypes.c_float), ctypes.c_float, p, p, i32,
+                        p, ctypes.c_longlong, p])
+    c_tot = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tot))
+    for layer in layers:
+        lsteps = _layer_steps(steps, layer)
+        t0, t1 = _layer_span(cl, origin, direction, layer)
+        span = t1 - t0
+        live = torch.nonzero(span > 1e-3).flatten()
+        if live.numel() == 0:
+            continue
+        dt = _step_length(span, lsteps)
+        offs, c_sh = _shadow_offsets(cl, layer, shadow_steps)
+        keep, ptrs, strides = _operands(
+            (*origin, *direction, t0, dt, phase, *sky_ambient, *sun_dir,
+             *(sun_radiance[c] for c in range(3))), dev, n)
+        # the lanes that cross the layer come first, as int64
+        ptrs, strides = [live.data_ptr()] + ptrs, [1] + strides
+        c_offs = (ctypes.c_float * max(shadow_steps, 1))(*offs)
+        kernels.check(fn(ctypes.byref(c_cl), layer, lsteps, shadow_steps, c_offs,
+                         c_sh, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                         (ctypes.c_longlong * len(ptrs))(*strides), len(ptrs),
+                         c_tot, live.numel(), _stream(dev)), "cloud_march")
+        cloud_march.launches += 1
+    return (tot[0], tot[1], tot[2]), tot[3]
 
 
 def _march_one_layer(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
@@ -242,25 +384,19 @@ def _march_one_layer(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
     o, d = Vec3(*(c[live] for c in origin)), Vec3(*(c[live] for c in direction))
     t0, span = t0[live], span[live]
     amb = tuple(c[live] if c.dim() else c for c in sky_ambient)
-    dt = sdiv(span, steps)
-    cos_sun = vdot(d, sun_dir)
-    # dual-lobe HG: forward 0.65 and backward -0.25, weighted 0.5 each
-    phase = (hg_phase_const(cos_sun, 0.65) * 0.5
-             + hg_phase_const(cos_sun, -0.25) * (1.0 - 0.5))
-    shadow_len = _F32(cl.height_max[layer]) - _F32(cl.height_min[layer])
-    shadow_len = _F32(shadow_len * _F32(0.5))
-    # every step's position [S, B] and its density
+    dt = _step_length(span, steps)
+    phase = _march_phase(d, sun_dir)
+    offs, c_sh = _shadow_offsets(cl, layer, shadow_steps)
+    # every step's position [S, B] and its density, t and the position
+    # rounded once each as the compiled reference's step fuses them
     i = torch.arange(steps, dtype=torch.float32, device=t0.device)[:, None]
-    t = t0[None] + (i + 0.5) * dt[None]
-    pos = Vec3(o.x[None] + d.x[None] * t, o.y[None] + d.y[None] * t,
-               o.z[None] + d.z[None] * t)
+    t = fma32(i + 0.5, dt[None], t0[None])
+    pos = Vec3(*(fma32(dc[None], t, oc[None]) for oc, dc in zip(o, d)))
     # the step's density with the fused hash, the shadow march's plain
     dens = cloud_density(cl, pos, layer, fused=True)
     # the shadow march's optical depth, summed in step order, where the
     # step has density (elsewhere its light is weighted by 0)
     lit_at = torch.nonzero(dens.reshape(-1) > 0.0).flatten()
-    offs = [float(_F32(_F32(k + 0.5) * shadow_len) / _F32(shadow_steps))
-            for k in range(shadow_steps)]
     p_lit = [c.reshape(-1)[lit_at] for c in pos]
     sd = cloud_density(cl, Vec3(*(torch.stack([c + s_ * o_ for o_ in offs])
                                   for c, s_ in zip(p_lit, sun_dir))), layer)
@@ -270,7 +406,6 @@ def _march_one_layer(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
     tau = torch.zeros_like(dens).reshape(-1)
     tau[lit_at] = tau_lit
     tau = tau.view_as(dens)
-    c_sh = float(shadow_len / _F32(shadow_steps))
     lr = torch.zeros_like(t0)
     lg, lb = lr.clone(), lr.clone()
     tr = torch.ones_like(t0)
@@ -292,7 +427,41 @@ def _march_one_layer(cl, origin: Vec3, direction: Vec3, sun_dir: Vec3,
 def cloud_sun_transmittance(cl: DeviceClouds, pos: Vec3, sun_dir: Vec3,
                             layers: tuple = (0,), steps: int = 3) -> torch.Tensor:
     """Sun transmittance through the layers from surface points (cloud
-    shadows): a coarse fixed-step density march per layer → [N] in [0, 1]."""
+    shadows): a coarse fixed-step density march per layer → [N] in [0, 1].
+    On the card one launch of ``csrc/clouds.cu`` ``lum_cloud_shadow``;
+    elsewhere :func:`_cloud_sun_transmittance_plain`. Both give the same
+    bits."""
+    if pos.x.is_cuda:
+        return _cloud_sun_transmittance_kernel(cl, pos, sun_dir, layers, steps)
+    return _cloud_sun_transmittance_plain(cl, pos, sun_dir, layers, steps)
+
+
+cloud_sun_transmittance.launches = 0
+
+
+def _cloud_sun_transmittance_kernel(cl, pos: Vec3, sun_dir: Vec3, layers: tuple,
+                                    steps: int) -> torch.Tensor:
+    n = pos.x.shape[0]
+    dev = pos.x.device
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    keep, ptrs, strides = _operands((*pos, *sun_dir), dev, n)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = kernels.entry("clouds", "lum_cloud_shadow",
+                       [ctypes.POINTER(_Clouds), ctypes.POINTER(i32), i32, i32,
+                        p, p, i32, p, ctypes.c_longlong, p])
+    c_layers = (i32 * max(len(layers), 1))(*layers)
+    kernels.check(fn(ctypes.byref(_clouds_struct(cl)), c_layers, len(layers), steps,
+                     (ctypes.c_void_p * len(ptrs))(*ptrs),
+                     (ctypes.c_longlong * len(ptrs))(*strides), len(ptrs),
+                     out.data_ptr(), n, _stream(dev)), "cloud_shadow")
+    cloud_sun_transmittance.launches += 1
+    return out
+
+
+def _cloud_sun_transmittance_plain(cl: DeviceClouds, pos: Vec3, sun_dir: Vec3,
+                                   layers: tuple, steps: int) -> torch.Tensor:
     n = pos.x.shape[0]
     out = torch.ones_like(pos.x)
     i = torch.arange(steps, dtype=torch.float32, device=pos.x.device)[:, None]

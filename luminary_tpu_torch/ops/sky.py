@@ -5,8 +5,11 @@ The DEFAULT atmosphere (and the HDRI map: the baked atmosphere with moon,
 stars and clouds folded in, or a user's image) is stored at pack time as a
 lat-long map of bilinear-quad rows; a miss is one kernel-A row gather plus
 a lerp. The solar disc stays analytic; in DEFAULT mode moon and stars are
-procedural. Aerial perspective reads one 128-column distance-curve row per
-lane, also through kernel A. Environment NEE draws a cell of the map by its
+procedural. The stars follow the rounding of the reference's compiled
+code (glibc's ``sinf``/``cosf`` and a fused dot: see
+:func:`_stars_radiance_plain`); on the card they are one kernel
+(``csrc/shading.cu`` ``lum_stars``). Aerial perspective reads one
+128-column distance-curve row per lane, also through kernel A. Environment NEE draws a cell of the map by its
 alias row and a direction uniformly inside it.
 
 Spectral rendering: the DEFAULT atmosphere is also baked at the 8 sky bands
@@ -19,11 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from .atmosphere import AERIAL_D_MAX, AERIAL_D_MIN, AERIAL_ND, AERIAL_NS, AERIAL_NU
+from .libm import cosf, sinf
 from .random import M32
 from .rowops import gather_planar
 from .spectral import sample_spectrum_bands, uplift
-from .vec import Vec3, dot as vdot, normalize, sdiv
+from .vec import Vec3, dot as vdot, fma32, normalize, sdiv, sqrt_rn
 
 MOON_ANGULAR_RADIUS = 0.00452
 MOON_COS_RADIUS = 0.999989786
@@ -110,26 +115,58 @@ def _hash01(x):
     return _hash_u32(x).to(torch.float32) * (1.0 / 4294967296.0)
 
 
-def stars_radiance(sky, d: Vec3):
-    """Procedural star field on a lat-long hash grid."""
+def stars_radiance(sky, d: Vec3, fused: bool = True):
+    """Procedural star field on a lat-long hash grid → (r, g, b) [N];
+    ``fused``: the dot rounded as the reference's compiled integrator
+    rounds it, else op by op as its eager HDRI bake does (see
+    :func:`_stars_radiance_plain`). On the card one launch of
+    ``csrc/shading.cu`` ``lum_stars``; elsewhere
+    :func:`_stars_radiance_plain`. Both give the same bits."""
+    if d.x.is_cuda:
+        return _stars_kernel(sky, d, fused)
+    return _stars_radiance_plain(sky, d, fused)
+
+
+stars_radiance.launches = 0
+
+
+def _star_cell(sky, d: Vec3):
+    """The lane's grid cell (gx, gy) and the cell's hash h0."""
     u = torch.atan2(d.z, d.x) * (0.5 / np.pi) + 0.5
     v = torch.arccos(torch.clamp(d.y, -1.0, 1.0)) * (1.0 / np.pi)
     gx = torch.clamp((u * STARS_GRID).to(torch.int32), 0, STARS_GRID - 1)
     gy = torch.clamp((v * STARS_GRID).to(torch.int32), 0, STARS_GRID - 1)
     cell = (gy * STARS_GRID + gx).to(torch.int64) & M32
     seed = int(sky.stars_seed) & M32
-    h0 = _hash_u32(((cell * 0x9E3779B9) + seed) & M32)
-    p_star = min(max(float(np.float32(sky.stars_count)
-                           / np.float32(STARS_GRID * STARS_GRID)), 0.0), 1.0)
-    present = _hash01(h0) < np.float32(p_star)
+    return gx, gy, _hash_u32(((cell * 0x9E3779B9) + seed) & M32)
+
+
+def _stars_p(sky) -> float:
+    """The probability that a cell holds a star, as a float32 value."""
+    return float(np.float32(min(max(float(np.float32(sky.stars_count)
+                                          / np.float32(STARS_GRID * STARS_GRID)),
+                                    0.0), 1.0)))
+
+
+def _stars_radiance_plain(sky, d: Vec3, fused: bool = True):
+    """Plain version of :func:`stars_radiance`. A star is a Gaussian of
+    3e-4 rad, and its angle comes from ``1 - cos``, so one ulp of the cosine
+    moves its glow by ~30 %: the star direction takes glibc's ``sinf`` /
+    ``cosf``, as the reference's compiled code does, and the cosine, where
+    ``fused``, XLA's contraction of the reference's dot in its compiled
+    integrator, fma(z, z', fma(y, y', x x')); its eager HDRI bake rounds the
+    dot op by op (its square root is correctly rounded)."""
+    gx, gy, h0 = _star_cell(sky, d)
+    present = _hash01(h0) < _stars_p(sky)
     su = (gx.to(torch.float32) + _hash01((h0 + 1) & M32)) / STARS_GRID
     sv = (gy.to(torch.float32) + _hash01((h0 + 2) & M32)) / STARS_GRID
     phi = (su - 0.5) * _TWO_PI
     theta = sv * np.pi
-    sd = Vec3(torch.cos(phi) * torch.sin(theta), torch.cos(theta),
-              torch.sin(phi) * torch.sin(theta))
-    cos_d = torch.clamp(vdot(d, sd), -1.0, 1.0)
-    ang = torch.sqrt(torch.clamp(2.0 * (1.0 - cos_d), min=0.0))
+    sin_t = sinf(theta)
+    sd = Vec3(cosf(phi) * sin_t, cosf(theta), sinf(phi) * sin_t)
+    cos_d = torch.clamp(fma32(d.z, sd.z, fma32(d.y, sd.y, d.x * sd.x)) if fused
+                        else vdot(d, sd), -1.0, 1.0)
+    ang = sqrt_rn(torch.clamp(2.0 * (1.0 - cos_d), min=0.0))
     radius = 3e-4 * (0.5 + _hash01((h0 + 3) & M32))
     glow = torch.exp(-(ang * ang) / torch.clamp(2.0 * radius * radius, min=1e-12))
     h4 = _hash01((h0 + 4) & M32)
@@ -138,6 +175,25 @@ def stars_radiance(sky, d: Vec3):
     i = torch.where(present, glow * brightness, 0.0)
     warm = _hash01((h0 + 5) & M32)
     return i * (0.8 + 0.4 * warm), i, i * (1.2 - 0.4 * warm)
+
+
+def _stars_kernel(sky, d: Vec3, fused: bool = True):
+    """:func:`stars_radiance` through ``lum_stars``: the cell and its hash
+    in PyTorch (as the plain version), the star and its glow in the kernel."""
+    n = d.x.shape[0]
+    gx, gy, h0 = _star_cell(sky, d)
+    intensity = sky.stars_intensity
+    if not isinstance(intensity, torch.Tensor):
+        intensity = torch.tensor(float(intensity), dtype=torch.float32)
+    outs = [torch.empty(n, dtype=torch.float32, device=d.x.device)
+            for _ in range(3)]
+    kernels.launch_lanes("shading", "lum_stars",
+                         [*d, gx, gy, h0.to(torch.int32),
+                          intensity.to(device=d.x.device, dtype=torch.float32)],
+                         outs, n, d.x.device,
+                         consts=(_stars_p(sky), float(bool(fused))))
+    stars_radiance.launches += 1
+    return tuple(outs)
 
 
 def moon_radiance(sky, d: Vec3):

@@ -890,7 +890,7 @@ def _bake_hdri_extras(scene: Scene, env: torch.Tensor, sun_dir: np.ndarray,
         stars_seed=int(sky.stars_seed), stars_count=int(sky.stars_count),
         stars_intensity=f32(sky.stars_intensity))
     moon, in_moon = moon_radiance(dsky, d)
-    stars = stars_radiance(dsky, d)
+    stars = stars_radiance(dsky, d, fused=False)  # the reference's eager bake
     ch = [env[:, :, c].reshape(-1) + (moon + torch.where(in_moon, 0.0, stars[c]))
           for c in range(3)]
     cloud_layers = active_layer_indices(scene.cloud)

@@ -76,7 +76,10 @@ def main(argv=None) -> int:
                       ("luminary_tpu_torch.ops.vec", "ray_point"),
                       ("luminary_tpu_torch.ops.material", "make_frame"),
                       ("luminary_tpu_torch.ops.material", "frame_eval"),
-                      ("luminary_tpu_torch.ops.material", "material_sample")):
+                      ("luminary_tpu_torch.ops.material", "material_sample"),
+                      ("luminary_tpu_torch.ops.sky", "stars_radiance"),
+                      ("luminary_tpu_torch.ops.clouds", "cloud_march"),
+                      ("luminary_tpu_torch.ops.clouds", "cloud_sun_transmittance")):
         try:
             fn = getattr(__import__(mod, fromlist=[name]), name, None)
         except ImportError:

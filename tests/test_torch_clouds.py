@@ -20,8 +20,10 @@ mean |diff| 6e-6, max 0.0056 with the correctly rounded sin). Held as mean
 fused hash equals the compiled ``_hash3`` on every lattice point (it read
 0.3 % apart with the correctly rounded sin), against 25 % apart for the
 plain rounding. The march against the compiled ``cloud_march`` at 1024
-lanes, 16 steps: 69 % of lanes bit-equal, transmittance mean |diff| 2.6e-7
-(max 3.5e-5), radiance means within 7e-7 (it read 2.4e-5 and 0.004 %).
+lanes, 16 steps: 68 % of lanes bit-equal, transmittance mean |diff| 7.2e-8
+(max 1.7e-6), radiance means within 4.4e-7 (with the step's position
+rounded op by op it read 2.6e-7, 3.5e-5 and 7e-7; with the correctly
+rounded sin 2.4e-5 and 0.004 %).
 Held as transmittance mean |diff| < 2e-4, under 1 % of lanes beyond 1e-3
 in transmittance and in radiance, the means within 0.1 %.
 ``cloud_sun_transmittance`` (plain) agrees lane by lane within 0.02.

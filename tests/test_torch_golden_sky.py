@@ -5,15 +5,17 @@ of ``tests/test_golden.py``: RMSE/scale < 0.02 over the whole image.
 
 Measured on an x86 CPU (``tests/torch_clouds_golden_trace.py``): the JAX
 package's own render reads 2.0e-4, and 7.87 when XLA may not fuse
-multiply-adds (``--xla_cpu_max_isa=AVX``). The port reads 0.0157 over the
-image, 3 of 1024 pixels more than 1e-2 of the scale apart. It follows the
-compiled reference's rounding in the cloud hash (fused h, glibc's sinf),
-the camera ray, the hit point and the bounce (tests/test_torch_rounding.py),
-so that every closest walk of the 64 samples starts from the reference's
-bits and the cloud march's inputs are equal on every lane; the march's own
-result still parts in 37 of 65,536 lanes (3 beyond 1e-3), which holds those
-pixels apart (ROADMAP.md queue 3). Before, the port read 0.764 over the
-image, with up to 24 pixels left out of the bound.
+multiply-adds (``--xla_cpu_max_isa=AVX``). The port reads 2.0e-4 over the
+image, no pixel more than 1e-2 of the scale apart. It follows the compiled
+reference's rounding in the cloud hash (fused h, glibc's sinf), the
+march's step (its length times the float32 reciprocal of the step count,
+t and the position each one fused multiply-add), the star field (glibc's
+sinf/cosf, a fused dot), the camera ray, the hit point and the bounce
+(tests/test_torch_rounding.py), so that every closest walk of the 64
+samples starts from the reference's bits and the sky the misses see is the
+reference's. The march's density still parts in 37 of 65,536 lanes, 2
+beyond 1e-3 (ROADMAP.md queue 3). Before, the port read 0.0157 with 3
+pixels apart (two of them lanes in a star's glow), and 0.764 before that.
 """
 
 import os
@@ -38,7 +40,9 @@ def test_clouds_32_against_golden():
     scale = float(np.abs(ref).mean()) + 1e-6
     full = float(np.sqrt(np.mean((img - ref) ** 2)) / scale)
     apart = np.abs(img - ref).max(axis=-1) > 1e-2 * scale
-    # the bound over the whole image, and no more pixels apart than the 3
-    # measured here plus the 2 an H100 added before (13 against 15)
+    # the bound over the whole image, and no more pixels apart than the 5
+    # the card is held to (chip_smoke.py); on the CPU 2.0e-4 is measured,
+    # held within 1e-3
     assert full < 0.02 and apart.sum() <= 5, (full, int(apart.sum()))
+    assert full < 1e-3, full
     assert r.sample_count == SPP

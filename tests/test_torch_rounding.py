@@ -297,3 +297,52 @@ def test_bounce_equals_compiled_reference(clouds_sample, inputs):
     assert _bits_equal(fr.p_spec.numpy(), jfr.p_spec)
     for a, b in zip(wi, jwi):
         assert _bits_equal(a.numpy(), b)
+
+
+# the miss directions of two clouds_32 lanes whose sky radiance parted from
+# the reference's by 60-125 % (pixel (x 3, y 12) at sample 26, (16, 30) at
+# sample 9): each lies within a star's glow, as float32 bits
+_STAR_LANES = ((0xbf2a729b, 0x3f3da2bd, 0x3db6c294),
+               (0xbd912e80, 0x3f7c0dce, 0x3e23bb06))
+
+
+def test_stars_equal_compiled_reference():
+    """The star field equals the reference's ``stars_radiance`` compiled
+    with ``jax.jit`` within 1e-5 (relative): at the two clouds_32 lanes, and
+    at 40 directions within ~2e-4 rad of every cell's star. A star is a
+    Gaussian of 3e-4 rad whose angle comes from ``1 - cos``, so one ulp of
+    the cosine moves its glow by ~30 %: the port takes glibc's ``sinf`` /
+    ``cosf`` for the star direction and XLA's contraction of the dot,
+    fma(z, z', fma(y, y', x x')). What is left is the ``exp`` of the glow,
+    XLA's against PyTorch's, an ulp apart (9e-7 measured)."""
+    from types import SimpleNamespace
+
+    from luminary_tpu.ops import sky as JS
+    from luminary_tpu_torch.ops import sky as TS
+
+    g = TS.STARS_GRID
+    cells = torch.arange(g * g)
+    h0 = TS._hash_u32((cells * 0x9E3779B9) & 0xFFFFFFFF)
+    su = ((cells % g).double() + TS._hash01((h0 + 1) & 0xFFFFFFFF).double()) / g
+    sv = ((cells // g).double() + TS._hash01((h0 + 2) & 0xFFFFFFFF).double()) / g
+    phi, theta = (su - 0.5) * 2.0 * np.pi, sv * np.pi
+    star = torch.stack([torch.cos(phi) * torch.sin(theta), torch.cos(theta),
+                        torch.sin(phi) * torch.sin(theta)], -1).numpy()
+    rng = np.random.default_rng(34)
+    d = np.repeat(star, 40, 0) + rng.standard_normal((g * g * 40, 3)) * 2e-4
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lanes = np.asarray(_STAR_LANES, np.uint32).view(np.float32)
+    d = np.concatenate([lanes, d.astype(np.float32)])
+    sky_t = SimpleNamespace(stars_seed=0, stars_count=10000,
+                            stars_intensity=torch.tensor(1.0))
+    sky_j = SimpleNamespace(stars_seed=jnp.uint32(0), stars_count=jnp.int32(10000),
+                            stars_intensity=jnp.float32(1.0))
+    got = TS.stars_radiance(sky_t, Vec3(*(torch.as_tensor(
+        np.ascontiguousarray(d[:, i])) for i in range(3))))
+    ref = jax.jit(lambda x, y, z: JS.stars_radiance(sky_j, JV(x, y, z)))(
+        *(jnp.asarray(d[:, i]) for i in range(3)))
+    for a, b in zip(got, ref):
+        a, b = a.numpy(), np.asarray(b)
+        assert (b[:2] > 0.01).all() and (b > 1e-3).mean() > 0.9
+        rel = np.abs(a - b) / np.maximum(b, 1e-30)
+        assert rel.max() < 1e-5, (rel.max(), int(np.argmax(rel)))

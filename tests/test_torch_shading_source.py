@@ -1,6 +1,6 @@
 """``csrc/shading.cu`` on the CPU: each of its kernels (the camera ray, the
-hit point, the shading frame, the BSDF's evaluation and its sample) equals
-its plain PyTorch version bit for bit.
+hit point, the shading frame, the BSDF's evaluation and its sample, the
+stars) equals its plain PyTorch version bit for bit.
 
 The source is compiled for the host by g++ against the kernel emulation
 (``emu_build`` in ``test_torch_proto_gather.py``: each launch runs its grid
@@ -10,7 +10,9 @@ operand order and strides the wrappers pass are checked with the kernel.
 The plain versions are the ones ``tests/test_torch_rounding.py`` holds
 against the reference compiled with ``jax.jit``. Equal bit for bit except
 that any NaN equals any NaN, and +0 equals -0 (PyTorch's clamp keeps or
-drops a zero's sign by its vector width).
+drops a zero's sign by its vector width). The stars take ``exp``, which
+the emulation computes with the host's ``expf``: their plain version runs
+with ``torch.exp`` replaced by it (``test_torch_clouds_source.py``).
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from luminary_tpu_torch.ops.ggx import ggx_energy_quad
 from luminary_tpu_torch.ops.random import blue_base, quasi_2d, RandomTarget
 from luminary_tpu_torch.ops.vec import Vec3
 from luminary_tpu_torch.testing import clouds_scene
+from test_torch_clouds_source import host_exp  # noqa: F401
 from test_torch_proto_gather import emu_build
 
 torch.set_num_threads(1)
@@ -171,3 +174,37 @@ def test_camera_ray_source_equals_plain(shading_emu, aperture):
         want = TCam._camera_ray_plain(cam, w, h, px, py, jitter, ap)
         for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
             _same(a, b)
+
+
+def test_stars_source_equals_plain(shading_emu, host_exp):  # noqa: F811
+    """Directions within ~2e-4 rad of the stars of 64 random cells, and
+    random ones (no star near): the fused dot with an intensity tensor, the
+    op-by-op dot (the HDRI bake's) with a host float."""
+    from types import SimpleNamespace
+
+    from luminary_tpu_torch.ops import sky as TS
+
+    rng = np.random.default_rng(49)
+    g = TS.STARS_GRID
+    cells = torch.as_tensor(rng.integers(0, g * g, 64))
+    h0 = TS._hash_u32((cells * 0x9E3779B9 + 7) & 0xFFFFFFFF)
+    su = ((cells % g).double() + TS._hash01((h0 + 1) & 0xFFFFFFFF).double()) / g
+    sv = ((cells // g).double() + TS._hash01((h0 + 2) & 0xFFFFFFFF).double()) / g
+    phi, theta = (su - 0.5) * 2.0 * np.pi, sv * np.pi
+    star = torch.stack([torch.cos(phi) * torch.sin(theta), torch.cos(theta),
+                        torch.sin(phi) * torch.sin(theta)], -1).numpy()
+    d = np.concatenate([np.repeat(star, 40, 0)
+                        + rng.standard_normal((64 * 40, 3)) * 2e-4,
+                        _unit(rng, 440)])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dv = _vec(d)
+    for intensity, fused in ((torch.tensor(1.5), True), (0.75, False)):
+        sky = SimpleNamespace(stars_seed=7, stars_count=10000,
+                              stars_intensity=intensity)
+        got = TS._stars_kernel(sky, dv, fused)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch, "exp", host_exp)
+            want = TS._stars_radiance_plain(sky, dv, fused)
+        for a, b in zip(got, want):
+            _same(a, b)
+        assert float((want[1] > 1e-3).float().mean()) > 0.5
