@@ -17,8 +17,11 @@ Phases, one or more lines each; any failure exits non-zero:
    C, the rounding kernels (``libm_sincos`` and ``fma32``; ``csrc/shading.cu``'s
    camera ray, hit point, frame, BSDF evaluation and sample against their
    plain versions run on the CPU, and its stars against theirs on the card,
-   whose ``exp`` is the kernel's; each timed out of L2, the five over 40
-   launches with their median), and the random streams (card against CPU),
+   whose ``atan2``, ``arccos`` and ``exp`` are the kernel's, at the main
+   path's lanes and at ~126,000 lanes whose grid coordinate lies within 4
+   ulps of a cell edge, both roundings of the dot, one device kernel a
+   call; each timed out of L2 over 40 launches with their median), and the
+   random streams (card against CPU),
    each with its time, bound, plain time and, for kernel A and unplanar, a
    library yardstick and graph-replay device times beside the eager ones. With
    ``--compare DIR`` (a directory holding an earlier version's
@@ -32,8 +35,10 @@ Phases, one or more lines each; any failure exits non-zero:
    fetch chain), kernel F (slab body, both fetch modes) and kernel T
    (transpose) against their plain versions at the shapes of the Pallas
    prototypes in ``tools/``, with time, bound, plain time and a library
-   yardstick where one exists, and the launch floor (an empty kernel,
-   ``csrc/launch_floor.cu``, timed the same way). Kernel E is also held bit
+   yardstick where one exists, after the launch floor (an empty kernel,
+   ``csrc/launch_floor.cu``, timed the same way), and D's and F's bounds
+   with the floor in them: max(bytes, operations, floor). Kernel E is also
+   held bit
    for bit at the contract's other shapes (K and steps 0, 1 and across
    stages, 4 to 128 columns, chains that cycle, a table too large for its
    shared-memory tables, NaN in column 0), beside the floor of its ordered
@@ -45,6 +50,11 @@ Phases, one or more lines each; any failure exits non-zero:
    counts of D, E, F and T from 0;
 4. main path: the tree-tier bench scene at 1080p, depth 4, through the
    Renderer, with launch counts of every kernel and Mrays/s;
+4b. the profile of one more sample of it (``utils/profiling.py``
+   ``profile_renderer``): device time by the integrator's stages, the
+   percentages summing to 100, the device's busy share over the profiled
+   window, and kernels A, B (closest and any hit) and C each under its
+   stage;
 5. dense tier: ``cornell_scene(512, 512, 4)`` Mrays/s;
 6. correctness: 64-spp renders of golden scenes on the card against
    ``tests/golden`` (RMSE/scale < 0.02, the bound of tests/test_golden.py):
@@ -68,7 +78,10 @@ Phases, one or more lines each; any failure exits non-zero:
    the radiance within RMSE/scale 0.02) and the CLI (``python -m luminary_tpu_torch`` on the scene
    written as OBJ/MTL and ``.lum``: ``-s 4 -o out.png``, then ``-b 2``; each
    run in a subprocess through runpy, which prints that process's launch
-   counts when it exits);
+   counts when it exits; the ``-b`` ladder compared rung by rung with the
+   ``-s 4`` image by ``tools/compare.py``); and one ``PropertyPanel`` edit
+   through the card Host, which must restart accumulation, the next frame
+   drawn to the viewer's half-blocks;
 8. scene content at full width, ``content_scene(1920, 1080, 4)`` (the bench
    field with albedo, roughness, metallic, normal and luminance maps, 200
    alpha-textured cards, fog with 2-vertex bridges): the pack seconds and
@@ -122,7 +135,8 @@ Phases, one or more lines each; any failure exits non-zero:
    own 8-band bake within 1e-4 of the CPU's), the lens lanes that decided
    otherwise counted.
 
-Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
+Then the rows whose bound the launch floor raises, one JSON line of kernel
+results, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Without a CUDA device it exits with 2 and
 prints no result.
@@ -160,8 +174,12 @@ LEAF_LIGHT_OPS = 26
 SLAB_BODY_OPS = 25
 
 
+_T0 = time.monotonic()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """Print a line (or lines), the seconds since the start after it."""
+    print("%s  [%.1f s]" % (msg, time.monotonic() - _T0), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -257,6 +275,22 @@ def prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts=(),
         idx[:6] = edge.to(dev)
         return idx
 
+    # the card's floor for one launch: an empty kernel, timed like the rest,
+    # first. One launch is the least any of these functions takes, so beside
+    # each bound (bytes or operations) stands the bound with the floor,
+    # max(bytes, operations, floor), and the share of that
+    floor_fn = floor_lib.lum_launch_floor
+    floor_fn.argtypes, floor_fn.restype = [ctypes.c_void_p], ctypes.c_int
+    floor_ms = dev_ms(lambda: kernels.check(floor_fn(kernels.stream_handle(dev)),
+                                            "launch_floor"))
+    log("[launch floor] an empty kernel: %.4f ms a launch (device time from "
+        "CUDA-graph replays) | %s" % (floor_ms, smi))
+
+    def with_floor(b_ms, ms):
+        """(the bound with the launch floor, the share of it that ms is)."""
+        fb = max(b_ms, floor_ms)
+        return fb, 100.0 * fb / ms
+
     # kernel D: E1 / E1b (fill_nan), E4 (clamp) at 65,536 rows, E3 (zero,
     # bf16) at 512 rows; edge indices lead each index vector
     d_rows = []
@@ -277,14 +311,18 @@ def prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts=(),
         k = torch.where(k < 0, k + rows, k) if mode != "zero" else k
         used = torch.unique(k[(k >= 0) & (k < rows)]).numel()
         b_ms, b_by = bound(used * cols * 4 + n * 4 + n * cols * 4, 0)
+        fb_ms, f_share = with_floor(b_ms, ms)
         log("[kernel D %s] %d rows x %d: equal (NaN rows alike); %.4f ms a launch "
             "(one eager call %.4f ms), plain %.4f ms, library %.4f ms "
-            "(index_select%s), bound %.4f ms (%s) | %s" % (
+            "(index_select%s), bound %.5f ms (%s; %.0f %%), with the launch "
+            "floor %.4f ms (%.0f %%) | %s" % (
                 label, n, cols, ms, call_ms, plain_ms, lib_ms,
-                " on the bf16-rounded table" if bf16 else "", b_ms, b_by, smi))
+                " on the bf16-rounded table" if bf16 else "", b_ms, b_by,
+                100.0 * b_ms / ms, fb_ms, f_share, smi))
         d_rows.append(dict(case=label, rows=n, ms=ms, call_ms=call_ms,
                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                           bound_by=b_by))
+                           bound_by=b_by, bound_with_floor_ms=fb_ms,
+                           launch_floor_ms=floor_ms))
     out.append(dict(
         name="gather_rows", route="cuda",
         source="luminary_tpu_torch/csrc/gather_rows.cu",
@@ -296,14 +334,6 @@ def prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts=(),
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         shape=d_rows[0]["case"], cases=d_rows))
 
-    # the card's floor for one launch: an empty kernel, timed like the rest
-    floor_fn = floor_lib.lum_launch_floor
-    floor_fn.argtypes, floor_fn.restype = [ctypes.c_void_p], ctypes.c_int
-    floor_ms = dev_ms(lambda: kernels.check(floor_fn(kernels.stream_handle(dev)),
-                                            "launch_floor"))
-    log("[launch floor] an empty kernel: %.4f ms a launch (device time from "
-        "CUDA-graph replays) | %s" % (floor_ms, smi))
-    d_rows[2]["launch_floor_ms"] = floor_ms
     out[-1]["launch_floor_ms"] = floor_ms
 
     # kernel E against an earlier build of csrc/gather_sum.cu (--compare), in
@@ -471,15 +501,18 @@ def prototype_kernels(dev, cuda_ms, bound, smi, floor_lib, alts=(),
             read = torch.unique(k).numel() * 96 * 4 + g * 4
         b_ms, b_by = bound(read + 8 * g * 4 + 4 + g * 4,
                            g * (16 * 8 * SLAB_BODY_OPS + 8))
+        fb_ms, f_share = with_floor(b_ms, ms)
         log("[kernel F slab_body %s] %d packets x 16 children x 8 rays: exact "
             "(%d all-miss packets); %.4f ms a launch (one eager call %.4f ms), "
-            "plain %.3f ms, bound %.5f ms (%s; 64 blocks: launch and one wave's "
-            "latency set the time) | %s" % (
+            "plain %.3f ms, bound %.5f ms (%s; %.0f %%; 64 blocks: launch and "
+            "one wave's latency set the time), with the launch floor %.4f ms "
+            "(%.0f %%) | %s" % (
                 mode, g, int(torch.isinf(got).sum()), ms, call_ms, plain_ms, b_ms,
-                b_by, smi))
+                b_by, 100.0 * b_ms / ms, fb_ms, f_share, smi))
         f_rows.append(dict(case=mode, packets=g, ms=ms, call_ms=call_ms,
                            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                           bound_by=b_by))
+                           bound_by=b_by, bound_with_floor_ms=fb_ms,
+                           launch_floor_ms=floor_ms))
     out.append(dict(
         name="slab_body", route="cuda", source="luminary_tpu_torch/csrc/slab_body.cu",
         replaces="tools/proto_pallas_gather2.py:126", max_abs_err=0.0,
@@ -611,14 +644,17 @@ def cold_launch_ms(fn, dev, reps=20) -> float:
 
 # csrc/shading.cu's kernels: (the public wrapper, the bytes a lane reads and
 # writes, fp32 operations a lane counted from the source; glibc's sine and
-# cosine count ~25 float64 operations each, as 2 fp32 ones)
+# cosine count ~25 float64 operations each, as 2 fp32 ones). The stars read
+# d and write r, g, b (the intensity is a broadcast scalar); their cell adds
+# CUDA's atan2f (a division and a degree-8 polynomial, ~35 operations) and
+# acosf (a square root and a polynomial, ~25) to the star's ~100
 SHADING = {
     "camera_ray": (44, 90),
     "ray_point": (40, 6),
     "make_frame": (116, 70),
     "frame_eval": (113, 160),
     "material_sample": (143, 520),
-    "stars": (36, 100),
+    "stars": (24, 160),
 }
 
 
@@ -757,9 +793,15 @@ def shading_kernels(dev, smi, r, bound, cuda_ms) -> list:
 
     # the stars (lum_stars), at the deferred sky's width: half the lanes
     # within ~2e-4 rad of a star, where one ulp of the cosine moves the glow
-    # by ~30 %, half uniform; against the plain version on the card, whose
-    # exp is the kernel's expf (PyTorch's CPU exp rounds otherwise)
+    # by ~30 %, half uniform; and lanes whose grid coordinate u or v lies
+    # within 4 ulps of a cell edge k/64, where an ulp of atan2 or arccos
+    # moves a lane to the next cell (and a whole star appears or vanishes).
+    # Against the plain version on the card, whose atan2, arccos and exp are
+    # ATen's (the same functions as the kernel's: atan2f, acosf, expf), for
+    # both roundings of the dot, bit for bit
     from luminary_tpu_torch.ops import sky as S
+    from luminary_tpu_torch.testing import star_edge_directions
+    from torch.profiler import ProfilerActivity, profile
 
     sky = r.device_scene.sky
     g = S.STARS_GRID
@@ -776,27 +818,62 @@ def shading_kernels(dev, smi, r, bound, cuda_ms) -> list:
     dirs = np.concatenate([near, far])
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     d = Vec3(*(lanes(dirs[:, i]) for i in range(3)))
-    got = S.stars_radiance(sky, d)
-    want = tuple(w.cpu() for w in S._stars_radiance_plain(sky, d))
-    err, nd = compare(got, want)
-    lit = int((want[1] > 1e-3).sum())
-    ms = cold_launch_ms(lambda: S.stars_radiance(sky, d), dev)
+    edges = star_edge_directions(per_edge=1000, seed=13)
+    de = Vec3(*(lanes(edges[:, i]) for i in range(3)))
+    # the edge lanes' u and v as the plain version computes them on the card
+    u = torch.atan2(de.z, de.x) * (0.5 / np.pi) + 0.5
+    v = torch.arccos(torch.clamp(de.y, -1.0, 1.0)) * (1.0 / np.pi)
+
+    def near_edge(c):
+        k = torch.round(c.double() * g)
+        ulp = torch.as_tensor(np.spacing(np.maximum(
+            (k / g).float().cpu().numpy(), np.float32(1.0 / g))), device=dev)
+        return (c.double() - k / g).abs() <= 4 * ulp.double()
+
+    n_edge = int((near_edge(u) | near_edge(v)).sum())
+    both = Vec3(*(torch.cat([a, b]) for a, b in zip(d, de)))
+    err, nd = 0.0, 0
+    for fused in (True, False):
+        got = S.stars_radiance(sky, both, fused)
+        want = tuple(w.cpu() for w in S._stars_radiance_plain(sky, both, fused))
+        e_, n_ = compare(got, want)
+        err, nd = max(err, e_), nd + n_
+        if fused:
+            lit = int((want[1][:n] > 1e-3).sum())
+            edge_lit = int((want[1][n:] > 0).sum())
+    # one launch a call, no PyTorch op before it
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        S.stars_radiance(sky, d)
+        torch.cuda.synchronize(dev)
+    launched = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    times = cold_launch_times(lambda: S.stars_radiance(sky, d), dev, reps=40)
+    ms, med = sum(times) / len(times), float(np.median(times))
     plain_ms = cuda_ms(lambda: S._stars_radiance_plain(sky, d), iters=3, warmup=1)
     b_bytes, b_ops = SHADING["stars"]
     b_ms, b_by = bound(b_bytes * n, b_ops * n)
-    log("[shading stars] %d lanes (%d in a star's glow) against the plain "
-        "version on the card: %d values differ, max abs err %.3g; %.4f ms a "
-        "call (out of L2; the lane's cell in PyTorch, then one launch), plain "
-        "%.3f ms, bound %.4f ms (%s) | %s" % (n, lit, nd, err, ms, plain_ms, b_ms,
-                                             b_by, smi))
+    log("[shading stars] %d lanes (%d in a star's glow) and %d cell-edge lanes "
+        "(%d of them within 4 ulps of an edge in u or v on the card, %d lit), "
+        "fused and op-by-op dot, against the plain version on the card: %d "
+        "values differ, max abs err %.3g; device kernels in one call: %s; "
+        "%.4f ms a call (one launch, out of L2; median of %d %.4f, min %.4f, "
+        "max %.4f; %.0f %% of the bound at the median), plain %.3f ms, bound "
+        "%.4f ms (%s, %d B a lane) | %s" % (
+            n, lit, len(edges), n_edge, edge_lit, nd, err, launched, ms,
+            len(times), med, min(times), max(times), 100.0 * b_ms / med,
+            plain_ms, b_ms, b_by, b_bytes, smi))
     assert nd == 0 and lit > n // 4, (nd, err, lit)
+    assert n_edge >= 100_000, n_edge
+    assert len(launched) == 1 and "stars_kernel" in launched[0], launched
     rows.append(dict(
         name="stars", route="cuda", source="luminary_tpu_torch/csrc/shading.cu",
         replaces="none: the float32 rounding of the reference's compiled CPU "
                  "code (glibc's sinf / cosf, a fused dot) at "
                  "luminary_tpu/ops/sky.py:131",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, lanes=n, glow_lanes=lit))
+        library_ms=None, lanes=n, glow_lanes=lit, edge_lanes=len(edges),
+        edge_lanes_within_4_ulps=n_edge, cold_median_ms=med, cold_ms=times,
+        device_kernels_a_call=launched))
     return rows
 
 
@@ -860,6 +937,66 @@ def _assert_ran(counts, idle=CLOUDS, label=""):
     assert not missing, (label, missing, counts)
     ran = [k for k in NO_RENDER if counts[k]]
     assert not ran, (label, "launched on a render path", ran, counts)
+
+
+# the stages under which the profile of a tree-1080p sample must find kernels
+# A (the shade rows), B (closest and any hit) and C (the light tree)
+PROFILE_KERNELS = (("gather_soa_kernel", "shade-row fetch"),
+                   ("traverse_wide_kernel", "closest walk"),
+                   ("traverse_wide_kernel", "shadow walk"),
+                   ("light_tree_descend_kernel", "light NEE (RIS, light tree)"))
+
+
+def profile_phase(r, smi) -> dict:
+    """Phase 4b: utils/profiling.py profile_renderer on the tree-1080p
+    renderer for one sample: the breakdown by stage, the device busy share
+    (the kernels' device time summed over the profiled window's wall time,
+    the profiler on), kernels A, B and C each under their stage."""
+    import collections
+    import shutil
+    import tempfile
+
+    from luminary_tpu_torch.utils import profiling as P
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    trace_dir = tempfile.mkdtemp(prefix="lum_profile_", dir=build)
+    t0 = time.monotonic()
+    rows = P.profile_renderer(r, samples=1, trace_dir=trace_dir)
+    wall_s = time.monotonic() - t0
+    events = P.stage_events(trace_dir)
+    with open(os.path.join(trace_dir, P.TRACE_FILE)) as f:
+        trace = json.load(f)["traceEvents"]
+    window_ms = [e["dur"] / 1e3 for e in trace
+                 if e.get("ph") == "X" and e.get("name") == P.WINDOW
+                 and e.get("cat") == "user_annotation"][0]
+    trace_mb = os.path.getsize(os.path.join(trace_dir, P.TRACE_FILE)) / 1e6
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    device_ms = sum(ms for *_, ms, on_dev in events if on_dev)
+    n_device = sum(1 for *_, on_dev in events if on_dev)
+    by_stage = collections.defaultdict(collections.Counter)
+    for stage, name, ms, on_dev in events:
+        if on_dev:
+            by_stage[stage or "other"][re.split(r"[(<]", name)[0].split(" ")[-1]] += ms
+    total_pct = sum(p for _, _, p in rows)
+    placed = {"%s under %s" % (k, st): round(by_stage[st][k], 4)
+              for k, st in PROFILE_KERNELS}
+    log("[profile] tree-1080p, 1 sample under torch.profiler (CPU and CUDA "
+        "activity; %.1f s with the trace's export and summary, a %.1f MB "
+        "trace): %d device kernels and copies, %.2f ms of a %.2f ms window, "
+        "device busy %.1f %%; "
+        "percentages sum to %.3f; kernels under their stage (ms) %s | %s\n%s"
+        % (wall_s, trace_mb, n_device, device_ms, window_ms,
+           100.0 * device_ms / window_ms,
+           total_pct, placed, smi, P.format_breakdown(rows)))
+    assert rows and abs(total_pct - 100.0) <= 1.0, total_pct
+    missing = [k for k, v in placed.items() if v <= 0.0]
+    assert not missing, (missing, {k: dict(v) for k, v in by_stage.items()})
+    return dict(rows=rows, device_ms=device_ms, device_events=n_device,
+                window_ms=window_ms,
+                busy_share=device_ms / window_ms, wall_s=wall_s,
+                trace_mb=trace_mb, kernels_by_stage={
+                    k: dict(v.most_common(12)) for k, v in by_stage.items()})
 
 
 # `python -m luminary_tpu_torch ARGS` as runpy runs it, printing the kernel
@@ -952,6 +1089,34 @@ def product_path(repo, dev, smi, tree) -> dict:
                        image_mean=float(img.mean()),
                        off_by_one=int((diff == 1).sum()),
                        get_image_ms=img_ms, pick=info)
+
+    # -- the property panel: one edit through the Host (camera pos.x + 0.5)
+    # restarts accumulation; the next frame drawn to the viewer's
+    # half-blocks --
+    from luminary_tpu_torch.frontend.properties import PropertyPanel
+    from luminary_tpu_torch.frontend.viewer import _image_to_halfblocks
+
+    panel = PropertyPanel()
+    x0 = host.get_camera().pos[0]
+    assert panel.handle_key("e", host) and panel.handle_key(".", host)
+    assert abs(host.get_camera().pos[0] - (x0 + 0.5)) < 1e-6
+    promise = host.request_output(1)
+    handle = OUTPUT_HANDLE_INVALID
+    while handle == OUTPUT_HANDLE_INVALID:
+        handle = host.try_await_output(promise)
+    edit_samples = host.get_image_meta(handle)["sample_count"]
+    frame = _image_to_halfblocks(host.get_image(handle), 96, 40)
+    panel_lines = panel.render(host)
+    assert edit_samples == 1 and r.sample_count == 1, (edit_samples, r.sample_count)
+    assert frame.count("\n") == 39 and frame.count("\u2580") == 96 * 40
+    log("[panel] PropertyPanel edit camera pos.x %.3f -> %.3f on the card Host: "
+        "accumulation restarted (the next output holds %d sample, the "
+        "renderer %d); one frame drawn to 96 x 40 half-blocks (%d characters), "
+        "the panel %d lines | %s" % (x0, host.get_camera().pos[0], edit_samples,
+                                     r.sample_count, len(frame),
+                                     len(panel_lines), smi))
+    out["panel"] = dict(samples_after_edit=edit_samples, frame_chars=len(frame),
+                        panel_lines=len(panel_lines))
     host.destroy()
     del host, r, acc_cpu
     torch.cuda.empty_cache()
@@ -1133,6 +1298,18 @@ def product_path(repo, dev, smi, tree) -> dict:
     out["cli"] = dict(runs=runs, triangles=n_tris, emitter_triangles=n_emit,
                       render_s=render_s, s_per_sample=render_s / 4,
                       ladder=rows[1:])
+
+    # -- tools/compare.py over the ladder, against the 4-spp render --
+    from luminary_tpu_torch.tools.compare import compare_ladder, format_row
+
+    conv = compare_ladder(os.path.join(work, "out.png"), work, "smoke")
+    log("[compare] the `-b 2 smoke` ladder against `-s 4`'s out.png "
+        "(Convergence-smoke.csv):\n%s" % "\n".join(format_row(c) for c in conv))
+    assert [c["spp"] for c in conv] == [1, 2, 3, 4], conv
+    assert all(np.isfinite(c[k]) for c in conv
+               for k in ("seconds", "rmse", "relmse", "flip_approx")), conv
+    assert conv[0]["rmse"] > conv[-1]["rmse"], conv
+    out["compare"] = conv
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -2927,7 +3104,10 @@ def main() -> int:
     for k in kern:
         if k["name"] in launches:
             k["launches"] = launches[k["name"]]
-    del r, acc
+    del acc
+    # ---- 4b. the profile of a tree-1080p sample by stage ----
+    report["profile_tree_1080p"] = profile_phase(r, smi)
+    del r
     torch.cuda.empty_cache()
 
     # ---- 5. dense tier: cornell-512 ----
@@ -3035,6 +3215,17 @@ def main() -> int:
             if k["name"] in optics[v]["launches"]:
                 k["optics_%s_launches" % v] = optics[v]["launches"][k["name"]]
     report["kernels"] = kern
+
+    # the launch floor in every row's bound: max(bytes, operations, floor)
+    floor_ms = by_name["gather_rows"]["launch_floor_ms"]
+    raised = []
+    for k in kern:
+        for c in [k] + [c for c in k.get("cases", []) if isinstance(c, dict)]:
+            if c.get("bound_ms") is not None and c["bound_ms"] < floor_ms:
+                raised.append("%s %s" % (k["name"], c.get("case", c.get("shape", ""))))
+        k["bound_with_floor_ms"] = max(k["bound_ms"], floor_ms)
+    log("[launch floor] %.4f ms: the rows whose bound it raises: %s | %s" % (
+        floor_ms, raised, smi))
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=float)

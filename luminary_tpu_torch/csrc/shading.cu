@@ -13,8 +13,8 @@
 //   lum_make_frame      ops/material.py _make_frame_plain
 //   lum_frame_eval      ops/material.py _frame_eval_plain
 //   lum_material_sample ops/material.py _material_sample_plain
-//   lum_stars           ops/sky.py _stars_radiance_plain (the star and its
-//                       glow; the lane's grid cell comes in from PyTorch)
+//   lum_stars           ops/sky.py _stars_radiance_plain (the lane's grid
+//                       cell and its hash, the star and its glow)
 // On the card a plain version is ~25-300 elementwise launches (about 1,000
 // a tree-1080p sample in all); each kernel here is one. The code follows
 // its plain version op for op: __fmaf_rn where the plain version calls
@@ -493,16 +493,32 @@ __device__ __forceinline__ float hash01(uint32_t x) {
   return (float)hash_u32(x) * 0x1p-32f;
 }
 
-// _stars_radiance_plain: in dx, dy, dz, the cell gx, gy, its hash h0 (int
-// bits), the intensity; c[0] the probability of a star in a cell, c[1] 1
-// for the fused dot (else op by op); out r, g, b
+// ops/sky.py _star_cell, in its order: u and v from CUDA's atan2f and acosf
+// (ATen's atan2 and arccos on the card call the same functions, whose bits
+// do not depend on -fmad), each scaled by the float32 rounding of PyTorch's
+// scalar operand, float32(0.5 / pi) = 0x1.45f306p-3 and float32(1 / pi) =
+// 0x1.45f306p-2; the cell's index truncated toward zero (as .to(int32)) and
+// clamped; its hash of cell * 0x9E3779B9 + seed, wrapping in 32 bits
+__device__ __forceinline__ uint32_t star_cell(const V3& d, uint32_t seed, int& gx,
+                                              int& gy) {
+  const float u = atan2f(d.z, d.x) * 0x1.45f306p-3f + 0.5f;
+  const float v = acosf(cl(d.y, -1.0f, 1.0f)) * 0x1.45f306p-2f;
+  gx = min(max((int)(u * 64.0f), 0), 63);
+  gy = min(max((int)(v * 64.0f), 0), 63);
+  return hash_u32((uint32_t)(gy * 64 + gx) * 0x9E3779B9u + seed);
+}
+
+// _stars_radiance_plain: in dx, dy, dz, the intensity (a broadcast scalar);
+// c[0] the probability of a star in a cell, c[1] 1 for the fused dot (else op
+// by op), c[2] and c[3] the low and high 16 bits of the seed; out r, g, b
 __global__ void stars_kernel(Ins in, Outs o, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const V3 d = {ld(in, 0, i), ld(in, 1, i), ld(in, 2, i)};
-  const int gx = ldi(in, 3, i), gy = ldi(in, 4, i);
-  const uint32_t h0 = (uint32_t)ldi(in, 5, i);
-  const float intensity = ld(in, 6, i);
+  const float intensity = ld(in, 3, i);
+  const uint32_t seed = (uint32_t)in.c[2] | ((uint32_t)in.c[3] << 16);
+  int gx, gy;
+  const uint32_t h0 = star_cell(d, seed, gx, gy);
   const bool present = hash01(h0) < in.c[0];
   const float su = ((float)gx + hash01(h0 + 1u)) / 64.0f;
   const float sv = ((float)gy + hash01(h0 + 2u)) / 64.0f;

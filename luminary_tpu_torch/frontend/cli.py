@@ -19,8 +19,9 @@ of the reference's ``JAX_PLATFORMS``. Without ``--device`` the CLI renders
 on the card and fails on a machine without one. ``--mesh N`` with N > 1 (a
 multi-device render) is not ported and raises NotImplementedError.
 
-(The interactive SDL GUI has no equivalent here; the observability it
-surfaced — worker status, sample times — is available through the Host API.)
+(The interactive SDL GUI's counterpart is the terminal viewer,
+``python -m luminary_tpu_torch.frontend.viewer``; the observability it
+surfaced, worker status and sample times, is available through the Host API.)
 """
 
 from __future__ import annotations

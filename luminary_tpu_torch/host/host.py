@@ -15,8 +15,8 @@ Two execution modes:
 
 The port of ``luminary_tpu/host/host.py``. ``Host(device=None)`` renders on
 the first CUDA card and raises without one; ``device="cpu"`` runs the plain
-PyTorch path. What the port lacks (a multi-device mesh, device elasticity,
-the per-stage profile) raises NotImplementedError naming its ROADMAP item.
+PyTorch path. What the port lacks (a multi-device mesh, device elasticity)
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -122,6 +122,10 @@ class Host:
         self._work_available.set()
         for w in self._workers:
             w.shutdown()
+        if self._asynchronous:
+            # the device worker ends its turn first: a process that exits
+            # while that thread is inside a PyTorch op aborts
+            self._render_thread.join()
         self._renderer = None
 
     def check_errors(self):
@@ -520,11 +524,13 @@ class Host:
         self.renderer.load_checkpoint(path)
 
     def profile_render(self, samples: int = 1):
-        """Per-stage device-time breakdown of a render sample: its
-        torch.profiler counterpart is not ported yet."""
-        raise NotImplementedError(
-            "profile_render: the per-stage profile (utils/profiling.py) is "
-            "not ported to PyTorch yet (ROADMAP.md queue 1 item 3)")
+        """Per-stage device-time breakdown of a render sample, the public
+        face of the reference's per-kernel timing printout
+        (device_renderer.c:282-343). Returns [(stage, ms, percent)]."""
+        from ..utils.profiling import profile_renderer
+
+        with self._renderer_lock:
+            return profile_renderer(self.renderer, samples=samples)
 
     # -- device info --------------------------------------------------------
 

@@ -8,9 +8,10 @@ a lerp. The solar disc stays analytic; in DEFAULT mode moon and stars are
 procedural. The stars follow the rounding of the reference's compiled
 code (glibc's ``sinf``/``cosf`` and a fused dot: see
 :func:`_stars_radiance_plain`); on the card they are one kernel
-(``csrc/shading.cu`` ``lum_stars``). Aerial perspective reads one
-128-column distance-curve row per lane, also through kernel A. Environment NEE draws a cell of the map by its
-alias row and a direction uniformly inside it.
+(``csrc/shading.cu`` ``lum_stars``), the lane's grid cell included. Aerial
+perspective reads one 128-column distance-curve row per lane, also through
+kernel A. Environment NEE draws a cell of the map by its alias row and a
+direction uniformly inside it.
 
 Spectral rendering: the DEFAULT atmosphere is also baked at the 8 sky bands
 into 32-column quad rows, fetched through kernel A the same way; HDRI,
@@ -131,7 +132,8 @@ stars_radiance.launches = 0
 
 
 def _star_cell(sky, d: Vec3):
-    """The lane's grid cell (gx, gy) and the cell's hash h0."""
+    """The lane's grid cell (gx, gy) and the cell's hash h0 (the plain
+    version of ``lum_stars``' ``star_cell``)."""
     u = torch.atan2(d.z, d.x) * (0.5 / np.pi) + 0.5
     v = torch.arccos(torch.clamp(d.y, -1.0, 1.0)) * (1.0 / np.pi)
     gx = torch.clamp((u * STARS_GRID).to(torch.int32), 0, STARS_GRID - 1)
@@ -178,20 +180,22 @@ def _stars_radiance_plain(sky, d: Vec3, fused: bool = True):
 
 
 def _stars_kernel(sky, d: Vec3, fused: bool = True):
-    """:func:`stars_radiance` through ``lum_stars``: the cell and its hash
-    in PyTorch (as the plain version), the star and its glow in the kernel."""
+    """:func:`stars_radiance` through ``lum_stars``: one launch with no
+    PyTorch op before it; the kernel computes the lane's cell and its hash
+    (:func:`_star_cell`), the star and its glow. The seed rides as two
+    16-bit halves, each exact in a float constant."""
     n = d.x.shape[0]
-    gx, gy, h0 = _star_cell(sky, d)
     intensity = sky.stars_intensity
     if not isinstance(intensity, torch.Tensor):
         intensity = torch.tensor(float(intensity), dtype=torch.float32)
+    seed = int(sky.stars_seed) & M32
     outs = [torch.empty(n, dtype=torch.float32, device=d.x.device)
             for _ in range(3)]
     kernels.launch_lanes("shading", "lum_stars",
-                         [*d, gx, gy, h0.to(torch.int32),
-                          intensity.to(device=d.x.device, dtype=torch.float32)],
+                         [*d, intensity.to(device=d.x.device, dtype=torch.float32)],
                          outs, n, d.x.device,
-                         consts=(_stars_p(sky), float(bool(fused))))
+                         consts=(_stars_p(sky), float(bool(fused)),
+                                 float(seed & 0xFFFF), float(seed >> 16)))
     stars_radiance.launches += 1
     return tuple(outs)
 

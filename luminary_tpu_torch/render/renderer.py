@@ -34,6 +34,7 @@ from ..ops.tonemap import (
 )
 from ..scene.entities import TEXTURE_NONE
 from ..scene.scene import DirtyFlags, Scene
+from ..utils.profiling import StageRanges
 from .adaptive import allocate_stage_tasks, block_error_map, scatter_add_stage
 from .device_scene import pack_scene
 from .wavefront import GBufferMeta, RenderConfig, render_sample
@@ -59,12 +60,14 @@ def _sample_step(scene, cam, config, pixel_x, pixel_y, sample_id,
                  accum: AccumState, with_gbuffer: bool = True):
     radiance, gbuffer, rays = render_sample(scene, cam, config, pixel_x,
                                             pixel_y, sample_id, with_gbuffer)
-    radiance, lum = _clamped_lum(radiance)
-    return AccumState(
-        radiance=accum.radiance + radiance,
-        lum_sq=accum.lum_sq + lum * lum,
-        sample_count=accum.sample_count + 1,
-    ), gbuffer, rays
+    with StageRanges() as stage:
+        stage("accumulation")
+        radiance, lum = _clamped_lum(radiance)
+        return AccumState(
+            radiance=accum.radiance + radiance,
+            lum_sq=accum.lum_sq + lum * lum,
+            sample_count=accum.sample_count + 1,
+        ), gbuffer, rays
 
 
 def _subset_step(scene, cam, config, pixel_x, pixel_y, sample_ids,
@@ -79,10 +82,12 @@ def _subset_step(scene, cam, config, pixel_x, pixel_y, sample_ids,
     for r in range(rounds):
         radiance, _, n = render_sample(scene, cam, config, pixel_x, pixel_y,
                                        sample_ids + r, with_gbuffer=False)
-        radiance, lum = _clamped_lum(radiance)
-        rad = rad + radiance
-        lsq = lsq + lum * lum
-        rays = rays + n
+        with StageRanges() as stage:
+            stage("accumulation")
+            radiance, lum = _clamped_lum(radiance)
+            rad = rad + radiance
+            lsq = lsq + lum * lum
+            rays = rays + n
     return rad, lsq, rays
 
 

@@ -114,6 +114,7 @@ from ..ops.volume import (
     water_transmittance,
 )
 from ..ops.wavefront_utils import ray_sort_key, sample_sun_direction
+from ..utils.profiling import StageRanges
 from .device_scene import (
     MAT_FLAG_EMISSIVE,
     MAT_FLAG_THIN_WALLED,
@@ -402,6 +403,17 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
     ``[N]`` tensor of per-lane ids (adaptive stages); ids are u32 words.
     With ``with_gbuffer=False`` the gbuffer is not built and comes back
     None: eager ops run whether or not their result is used."""
+    with StageRanges() as stage:
+        return _render_sample(stage, scene, cam, config, pixel_x, pixel_y,
+                              sample_id, with_gbuffer)
+
+
+def _render_sample(stage, scene: DeviceScene, cam: DeviceCamera,
+                   config: RenderConfig, pixel_x: torch.Tensor,
+                   pixel_y: torch.Tensor, sample_id, with_gbuffer: bool):
+    """:func:`render_sample`'s body; ``stage(name)`` marks where each of its
+    stages begins (``utils/profiling.py``)."""
+    stage("camera rays")
     geo = scene.geo
     mats = scene.materials
     lights = scene.lights
@@ -523,6 +535,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         return p
 
     for depth in range(config.max_depth):
+        stage("closest walk")
         rays_traced = rays_traced + active.to(torch.float32).sum()
         hit = trace_closest(geo.bvh, origin, direction, active=active)
         ocean_lane = particle_lane = None
@@ -530,6 +543,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # ---- the analytic ocean: the heightfield march up to the walk's
         # hit, the nearer surface wins ----
         if config.analytic_ocean:
+            stage("ocean")
             ocean_lane, oc_t = ocean_intersect(
                 water, origin, direction, torch.where(hit.valid, hit.t, 1e7),
                 active)
@@ -544,6 +558,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # boundary; up to 3 segments. A lone tile goes blind where the
         # wrapped origin sits on a face the ray leaves through. ----
         if config.use_particles:
+            stage("particles")
             particle_lane, p_t = _particle_tier(
                 scene.particles, origin, direction, hit, active, prev_delta,
                 depth, pixel_id, sample_id, config.max_depth)
@@ -557,6 +572,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
 
         # ---- volume collisions (analog tracking): fog, and water composed
         # with it by the nearer event ----
+        stage("volumes")
         t_media = torch.where(hit_valid, hit.t, 1e7)
         if fog_on:
             collided, t_col = sample_fog_collision(
@@ -587,6 +603,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             thr_r, thr_g, thr_b = thr_r * twr, thr_g * twg, thr_b * twb
 
         # ---- aerial perspective on segments that end on geometry or fog ----
+        stage("sky and miss")
         if config.aerial:
             ends_here = active & (hit_valid | collided) if vol_on else hit_lane
             (atr_r, atr_g, atr_b), (ain_r, ain_g, ain_b) = aerial_fetch(
@@ -620,6 +637,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
 
         # ---- hit context: one shade-row gather (big tables) or per-field
         # gathers (small tables); with textures one aux row too ----
+        stage("shade-row fetch")
         slot = torch.where(hit_lane, hit.slot, 0)
         t_safe = torch.where(hit_lane, hit.t, 1.0)
         hit_pos = ray_point(origin, direction, t_safe)
@@ -669,6 +687,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             if use_tex:
                 uvs = (vgather(geo.uv_u, sl), vgather(geo.uv_v, sl))
                 tex_id = mats.albedo_tex[mat_id]
+        stage("surface shading")
         if config.analytic_ocean:
             # ocean lanes carry slot 0: every slot-derived quantity becomes
             # the analytic surface's and the water material's
@@ -881,6 +900,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         frame = make_frame(lane_mat, ns, wo, scene.ggx_quad)
 
         # ---- NEE 1: the sun, RIS over {cone sample, BSDF proposal} ----
+        stage("sun NEE")
         sun_nee_on = nee_lane & sun_up & sky_has_sun
         sun_dir_s = sample_sun_direction(sun_v, pixel_id, sample_id, depth,
                                          bn=bn)
@@ -956,6 +976,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         tws = water_tr(shadow_origin, sun_dir_w, 1e7, water_scatter)
 
         # ---- NEE 2: emissive triangles, RIS over K candidates ----
+        stage("light NEE (RIS, light tree)")
         k_ris = max(int(config.ris_candidates), 1)
         wsum = zeros
         sel_phat = zeros
@@ -1071,6 +1092,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
 
         # ---- NEE 3: the environment, one alias-cell draw per vertex; Le is
         # the sky without the disc (the disc pairs with the sun strategy) ----
+        stage("env NEE")
         if config.env_nee:
             env_dir, pdf_env = sample_env_direction(sky, pixel_id, sample_id,
                                                     depth, bn=bn)
@@ -1103,6 +1125,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # ---- NEE 4: sun caustics for underwater vertices, connected on
         # the lanes that can use them ----
         if config.ocean_caustics:
+            stage("caustics")
             uw_lane = nee_lane & (shadow_origin.y < water.height) & sun_nee_on
             if not water.active:
                 uw_lane = false
@@ -1124,6 +1147,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # geometry, in the reference's segment order (sun, light, env,
         # caustic x→P, caustic P→sun); then the ocean surface and the
         # cutouts' transparency ----
+        stage("shadow walk")
         full_t = torch.full((n,), MISS_DIST, device=dev)
         seg_o = [shadow_origin, shadow_origin]
         seg_d = [sun_dir_w, l_dir]
@@ -1163,6 +1187,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                 geo.bvh, Vec3(*(c[:n_tr] for c in shadow_o)),
                 Vec3(*(c[:n_tr] for c in shadow_d)), shadow_t[:n_tr],
                 active=(shadow_act & ~occ)[:n_tr])
+        stage("NEE contributions")
         sun_w = sun_ris_w
         if t_sun is not None:
             sun_w = sun_w * t_sun
@@ -1228,6 +1253,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # through 1..bridge_vertices scattering events (M = 1 is the
         # direct connection) ----
         if use_bridges:
+            stage("bridges")
             y_pt = Vec3(shadow_origin.x + l_dir.x * dist,
                         shadow_origin.y + l_dir.y * dist,
                         shadow_origin.z + l_dir.z * dist)
@@ -1263,6 +1289,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
 
         # ---- bounce ----
         if depth + 1 < config.max_depth:
+            stage("bounce")
             cur_ior = medium_top_ior(medium)
             n_trans = torch.where(front_face | lane_mat.thin_walled,
                                   lane_mat.ior, medium_below_ior(medium))
@@ -1380,6 +1407,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
             # state follows its new place (a stable sort, so lanes of one
             # key keep their order) ----
             if sort:
+                stage("wavefront sort")
                 perm = torch.argsort(
                     ray_sort_key(origin, direction, active, geo.bvh.bounds),
                     stable=True)
@@ -1405,6 +1433,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
                     collapsed, lam3, lam_pdf3 = state[29:]
 
     # ---- deferred sky: one evaluation for all recorded misses ----
+    stage("sky and miss")
     safe_dir = vwhere(ever_missed, miss_dir, Vec3.of(0.0, 1.0, 0.0, like=miss_dir))
     in_sun_disc = dot(safe_dir, sun_v) >= SUN_COS_RADIUS
     disc_w = torch.where(in_sun_disc, miss_sun_weight, 0.0)
@@ -1425,6 +1454,7 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         # the cloud march in front of the sky, for the lanes that missed,
         # in RGB against the RGB sky (clouds are near-grey scatterers); its
         # inscatter then goes to the slots' wavelengths
+        stage("clouds")
         mix = torch.nonzero(ever_missed).flatten()
         (cr_, cg_, cb_), ct_ = cloud_march(
             scene.clouds, vgather(origin, mix), vgather(safe_dir, mix), sun_v,
@@ -1436,11 +1466,13 @@ def render_sample(scene: DeviceScene, cam: DeviceCamera, config: RenderConfig,
         sky_r = cr + sky_r * ct
         sky_g = cg + sky_g * ct
         sky_b = cb + sky_b * ct
+    stage("sky and miss")
     add = ever_missed.to(torch.float32)
     rad_r = rad_r + miss_thr_r * sky_r * add
     rad_g = rad_g + miss_thr_g * sky_g * add
     rad_b = rad_b + miss_thr_b * sky_b * add
     if spectral:
+        stage("spectral resolve")
         rad_r, rad_g, rad_b = resolve_to_rgb(rad_r, rad_g, rad_b, lam3,
                                              lam_pdf3)
     radiance = torch.stack([rad_r, rad_g, rad_b], dim=-1)

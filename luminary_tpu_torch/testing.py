@@ -535,3 +535,42 @@ def write_obj_scene(scene: Scene, directory: str, name: str = "scene") -> str:
         particles=scene.get_entity("particles"),
     ))
     return lum_path
+
+
+def star_edge_directions(per_edge: int = 800, seed: int = 0, ulps: int = 4,
+                         grid: int = 64) -> np.ndarray:
+    """Unit directions, float32 ``[m, 3]``, whose star-grid coordinate u
+    (from the azimuth) or v (from the polar angle), computed in float32 as
+    ``ops/sky.py`` ``_star_cell`` computes them, lies within ``ulps`` float32
+    ulps of a cell edge ``k / grid``: up to ``per_edge`` lanes for each k in
+    0..grid on each axis. Near the poles float32 directions reach few such v,
+    and the lanes there are fewer. Where the cell index is a truncation, these
+    are the lanes that one ulp of atan2 or arccos moves to the next cell."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    out = []
+    for axis in (0, 1):
+        for k in range(grid + 1):
+            edge = f32(k / grid)
+            tol = ulps * np.spacing(max(edge, f32(1.0 / grid)))
+            kept, tries = [], 0
+            while sum(len(x) for x in kept) < per_edge and tries < 8:
+                tries += 1
+                m = 4 * per_edge
+                t = rng.uniform(-1.0, 1.0, m) * (ulps + 2) * float(tol) / ulps
+                if axis == 0:
+                    phi = (k / grid - 0.5 + t) * 2.0 * np.pi
+                    theta = np.arccos(rng.uniform(-0.95, 0.95, m))
+                else:
+                    phi = rng.uniform(-np.pi, np.pi, m)
+                    theta = np.clip(k / grid + t, 0.0, 1.0) * np.pi
+                d = np.stack([np.cos(phi) * np.sin(theta), np.cos(theta),
+                              np.sin(phi) * np.sin(theta)], 1).astype(f32)
+                if axis == 0:
+                    c = (np.arctan2(d[:, 2], d[:, 0]) * f32(0.5 / np.pi)
+                         + f32(0.5))
+                else:
+                    c = np.arccos(np.clip(d[:, 1], f32(-1), f32(1))) * f32(1 / np.pi)
+                kept.append(d[np.abs(c.astype(np.float64) - float(edge)) <= tol])
+            out.append(np.concatenate(kept)[:per_edge])
+    return np.concatenate(out)

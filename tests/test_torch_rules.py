@@ -42,6 +42,10 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.host.queue_worker\n"
         "import luminary_tpu_torch.frontend.cli\n"
         "import luminary_tpu_torch.frontend.benchmark\n"
+        "import luminary_tpu_torch.frontend.properties\n"
+        "import luminary_tpu_torch.frontend.viewer\n"
+        "import luminary_tpu_torch.tools.compare\n"
+        "import luminary_tpu_torch.utils.profiling\n"
         "import luminary_tpu_torch.ops.post, luminary_tpu_torch.ops.tonemap\n"
         "import luminary_tpu_torch.render.adaptive\n"
         "import luminary_tpu_torch.ops.textures, luminary_tpu_torch.ops.volume\n"
@@ -325,8 +329,7 @@ def test_host_and_cli_without_device_need_a_card(monkeypatch, tmp_path):
     assert not (tmp_path / "o.png").exists()
 
 
-@pytest.mark.parametrize("feature", ["mesh", "cli_mesh", "set_device_enable",
-                                     "profile_render"])
+@pytest.mark.parametrize("feature", ["mesh", "cli_mesh", "set_device_enable"])
 def test_unported_host_features_raise(tmp_path, feature):
     """What the port lacks raises NotImplementedError naming its ROADMAP
     item; nothing falls back to a quiet single-device run."""
@@ -340,10 +343,8 @@ def test_unported_host_features_raise(tmp_path, feature):
         elif feature == "cli_mesh":
             lum = write_obj_scene(cornell_scene(8, 8), str(tmp_path), "box")
             cli.main([lum, "--mesh", "2", "--device", "cpu", "-s", "1"])
-        elif feature == "set_device_enable":
-            Host(device="cpu").set_device_enable(0, False)
         else:
-            Host(device="cpu").profile_render(1)
+            Host(device="cpu").set_device_enable(0, False)
     assert Host(mesh=1, device="cpu").get_device_count() == 1
 
 

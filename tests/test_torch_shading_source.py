@@ -10,10 +10,16 @@ operand order and strides the wrappers pass are checked with the kernel.
 The plain versions are the ones ``tests/test_torch_rounding.py`` holds
 against the reference compiled with ``jax.jit``. Equal bit for bit except
 that any NaN equals any NaN, and +0 equals -0 (PyTorch's clamp keeps or
-drops a zero's sign by its vector width). The stars take ``exp``, which
-the emulation computes with the host's ``expf``: their plain version runs
-with ``torch.exp`` replaced by it (``test_torch_clouds_source.py``).
+drops a zero's sign by its vector width). The stars take ``exp``,
+``atan2`` and ``arccos``, which the emulation computes with the host's
+``expf``, ``atan2f`` and ``acosf``: their plain version runs with the torch
+functions replaced by those (``host_exp`` of ``test_torch_clouds_source.py``,
+``host_atan2_acos`` here), since PyTorch's CPU versions round otherwise on
+some inputs. On the card the kernel's functions and ATen's are the same.
 """
+
+import ctypes
+import ctypes.util
 
 import numpy as np
 import pytest
@@ -26,7 +32,7 @@ from luminary_tpu_torch.ops import vec as TV
 from luminary_tpu_torch.ops.ggx import ggx_energy_quad
 from luminary_tpu_torch.ops.random import blue_base, quasi_2d, RandomTarget
 from luminary_tpu_torch.ops.vec import Vec3
-from luminary_tpu_torch.testing import clouds_scene
+from luminary_tpu_torch.testing import clouds_scene, star_edge_directions
 from test_torch_clouds_source import host_exp  # noqa: F401
 from test_torch_proto_gather import emu_build
 
@@ -176,10 +182,30 @@ def test_camera_ray_source_equals_plain(shading_emu, aperture):
             _same(a, b)
 
 
-def test_stars_source_equals_plain(shading_emu, host_exp):  # noqa: F811
-    """Directions within ~2e-4 rad of the stars of 64 random cells, and
-    random ones (no star near): the fused dot with an intensity tensor, the
-    op-by-op dot (the HDRI bake's) with a host float."""
+@pytest.fixture(scope="module")
+def host_atan2_acos():
+    """``torch.atan2`` and ``torch.arccos`` through the host's ``atan2f`` and
+    ``acosf``, element by element."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name, n_args in (("atan2f", 2), ("acosf", 1)):
+        getattr(libm, name).restype = ctypes.c_float
+        getattr(libm, name).argtypes = [ctypes.c_float] * n_args
+    vatan2 = np.frompyfunc(libm.atan2f, 2, 1)
+    vacos = np.frompyfunc(libm.acosf, 1, 1)
+
+    def host(f, *xs):
+        a = [x.detach().numpy() for x in xs]
+        return torch.as_tensor(f(*a).astype(np.float32).reshape(a[0].shape))
+    return (lambda y, x: host(vatan2, y, x)), (lambda x: host(vacos, x))
+
+
+def test_stars_source_equals_plain(shading_emu, host_exp,  # noqa: F811
+                                   host_atan2_acos):
+    """Directions within ~2e-4 rad of the stars of 64 random cells, random
+    ones (no star near), and ones whose grid coordinate u or v lies within 4
+    ulps of a cell edge k/64 (where the kernel's own cell could part from
+    the plain version's by a cell): the fused dot with an intensity tensor,
+    the op-by-op dot (the HDRI bake's) with a host float."""
     from types import SimpleNamespace
 
     from luminary_tpu_torch.ops import sky as TS
@@ -197,14 +223,27 @@ def test_stars_source_equals_plain(shading_emu, host_exp):  # noqa: F811
                         + rng.standard_normal((64 * 40, 3)) * 2e-4,
                         _unit(rng, 440)])
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    dv = _vec(d)
-    for intensity, fused in ((torch.tensor(1.5), True), (0.75, False)):
-        sky = SimpleNamespace(stars_seed=7, stars_count=10000,
+    edges = star_edge_directions(per_edge=40, seed=50)
+    dv = _vec(np.concatenate([d, edges]))
+    atan2, arccos = host_atan2_acos
+    for intensity, fused, seed in ((torch.tensor(1.5), True, 7),
+                                   (0.75, False, 0xDEADBEEF)):
+        sky = SimpleNamespace(stars_seed=seed, stars_count=10000,
                               stars_intensity=intensity)
         got = TS._stars_kernel(sky, dv, fused)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(torch, "exp", host_exp)
+            mp.setattr(torch, "atan2", atan2)
+            mp.setattr(torch, "arccos", arccos)
             want = TS._stars_radiance_plain(sky, dv, fused)
+            gx, gy, _ = TS._star_cell(sky, dv)
         for a, b in zip(got, want):
             _same(a, b)
-        assert float((want[1] > 1e-3).float().mean()) > 0.5
+        if seed == 7:
+            assert float((want[1][:len(d)] > 1e-3).float().mean()) > 0.5
+    # the edge lanes straddle their edges: the cells on both sides of every
+    # u edge are taken, and of the v edges float32 reaches away from the poles
+    e = slice(len(d), None)
+    assert len(edges) > 4000
+    assert len(np.unique(gx[e].numpy())) == g
+    assert len(np.unique(gy[e].numpy())) >= g - 4
