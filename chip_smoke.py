@@ -134,6 +134,18 @@ Phases, one or more lines each; any failure exits non-zero:
    pixels another decision, the rest within RMSE/scale 1e-3; the card's
    own 8-band bake within 1e-4 of the CPU's), the lens lanes that decided
    otherwise counted.
+11. multi-device rendering (``parallel/mesh.py`` through the Renderer) on
+   ``benchmark_scene(1920, 1080, 4)``: a 4-shard sample mesh of the card
+   (one step, sample ids 0-3) and a 2x2 grid mesh (two steps, each over two
+   pixel blocks) against the serial Renderer over ids 0-3 (RMSE/scale and
+   the largest absolute difference, within rtol 2e-4 and atol 1e-5); every
+   shard render's launches of kernels A, B and C and the current device
+   it ran under (each must launch all three, under its own device); the
+   seconds a sample of the serial and the 4-shard renderer in turns
+   (serial, mesh, mesh, serial); shard 0 disabled and 3 samples on the
+   re-formed mesh against a fresh 3-shard mesh (atol 1e-6); with two or
+   more cards, a sample mesh over the distinct cards against the serial
+   Renderer.
 
 Then the rows whose bound the launch floor raises, one JSON line of kernel
 results, the ``nvidia-smi`` name/power line,
@@ -1520,10 +1532,10 @@ def content_path(dev, smi, cuda_ms, bound) -> dict:
              ds.sky.env_rows.data_ptr(): "env C16",
              ds.ggx_quad.data_ptr(): "ggx quad C4"}
     by_table = {names.get(k, "other"): v
-                for k, v in RO.gather_soa.table_launches.items()}
-    b_names = {("closest", bvh.rows.data_ptr()): "closest, main table",
-               ("any_hit", bvh.rows.data_ptr()): "any-hit, main table",
-               ("any_hit", rs.data_ptr()): "any-hit, shadow table"}
+                for (_, k), v in RO.gather_soa.table_launches.items()}
+    b_names = {("closest", dev, bvh.rows.data_ptr()): "closest, main table",
+               ("any_hit", dev, bvh.rows.data_ptr()): "any-hit, main table",
+               ("any_hit", dev, rs.data_ptr()): "any-hit, shadow table"}
     b_by_table = {v: TR.traverse_wide.table_launches.get(k, 0)
                   for k, v in b_names.items()}
     mrays = r._last_rays_traced / dt / 1e6
@@ -2083,9 +2095,9 @@ def optics_path(dev, smi, cuda_ms, bound, tree, size=(1920, 1080)) -> dict:
         dt = time.monotonic() - t0
         counts = _path_counts()
         counts["traverse_wide.closest particle table"] = \
-            TR.traverse_wide.table_launches.get(("closest", ptable), 0)
+            TR.traverse_wide.table_launches.get(("closest", dev, ptable), 0)
         counts["gather_soa env_spec_rows C32"] = \
-            RO.gather_soa.table_launches.get(spec_table, 0)
+            RO.gather_soa.table_launches.get((dev, spec_table), 0)
         v.update(samples=block, seconds=dt, rays=r._last_rays_traced,
                  mrays=r._last_rays_traced / dt / 1e6, launches=counts,
                  rays_per_sample=r._last_rays_per_sample)
@@ -2381,6 +2393,145 @@ def _any_hit_on_batch(saved, n, ds, cuda_ms, bound, smi) -> dict:
             library_ms=None, kernel_only_confirmed_lanes=confirmed,
             checked_lanes=int(ix.numel()), tests=own, packet_tests=stats)
     return res
+
+
+def mesh_path(dev, smi, size=(1920, 1080)) -> dict:
+    """Phase 11: multi-device rendering (``parallel/mesh.py`` through the
+    Renderer) on tree-1080p against the serial Renderer over the same sample
+    ids. Every failed check raises."""
+    import numpy as np
+    import torch
+
+    from luminary_tpu_torch.ops import light_tree as LT
+    from luminary_tpu_torch.ops import rowops as RO
+    from luminary_tpu_torch.ops import traverse as TR
+    from luminary_tpu_torch.parallel import mesh as PM
+    from luminary_tpu_torch.render.renderer import Renderer
+    from luminary_tpu_torch.testing import benchmark_scene
+
+    W, H = size
+    n = W * H
+    out = {}
+
+    def abc():
+        return dict(A=RO.gather_soa.launches, B=TR.traverse_wide.launches,
+                    C=LT.light_tree_descend.launches)
+
+    # each shard's render: the launches of A, B and C it made and the current
+    # device it ran under
+    shards = []
+    real_render = PM.render_sample
+
+    def counted(*a, **k):
+        before = abc()
+        res = real_render(*a, **k)
+        after = abc()
+        shards.append(dict(device=str(a[3].device),
+                           current=torch.cuda.current_device(),
+                           **{x: after[x] - before[x] for x in after}))
+        return res
+
+    def compare(label, got, ref, rtol, atol):
+        a, b = got.accum.radiance[:n].cpu().numpy(), ref[:n]
+        scale = float(np.abs(b).mean()) + 1e-6
+        res = dict(rmse_over_scale=float(np.sqrt(np.mean((a - b) ** 2)) / scale),
+                   max_abs=float(np.abs(a - b).max()), rtol=rtol, atol=atol,
+                   ok=bool(np.allclose(a, b, rtol=rtol, atol=atol)))
+        log("[mesh] %s against the serial Renderer over the same ids: "
+            "RMSE/scale %.3g, max abs %.3g (rtol %g, atol %g) | %s" % (
+                label, res["rmse_over_scale"], res["max_abs"], rtol, atol, smi))
+        assert res["ok"], (label, res)
+        out[label] = res
+
+    def run(label, r, samples):
+        """Render through the mesh with each shard recorded; check that every
+        shard launched A, B and C under its own device."""
+        shards.clear()
+        PM.render_sample = counted
+        try:
+            t0 = time.monotonic()
+            r.render_samples(samples)
+            dt = time.monotonic() - t0
+        finally:
+            PM.render_sample = real_render
+        bad = [s for s in shards if min(s["A"], s["B"], s["C"]) == 0
+               or torch.device(s["device"]).index != s["current"]]
+        assert len(shards) == r.mesh.size * samples // r._n_axis and not bad, \
+            (label, shards)
+        log("[mesh] %s: %d shard renders in %.3f s; launches of A, B, C and "
+            "the current device by shard: %s | %s" % (
+                label, len(shards), dt,
+                ["%s %d/%d/%d cur %s" % (s["device"], s["A"], s["B"], s["C"],
+                                        s["current"]) for s in shards], smi))
+        out[label + "_shards"] = list(shards)
+
+    serial = Renderer(benchmark_scene(W, H, max_depth=4), device=dev)
+    serial.render_samples(4)
+    ref = serial.accum.radiance.cpu().numpy()
+
+    # -- a 4-shard sample mesh of the card: one step, sample ids 0-3 --
+    r4 = Renderer(benchmark_scene(W, H, max_depth=4),
+                  mesh=PM.make_sample_mesh([dev] * 4))
+    run("sample_mesh_4", r4, 4)
+    assert r4.sample_count == 4 and r4._last_rays_per_sample > 0
+    compare("sample_mesh_4", r4, ref, 2e-4, 1e-5)
+    # seconds a sample of both renderers, in turns (4 samples a turn)
+    turns = []
+    for r, name in ((serial, "serial"), (r4, "mesh"), (r4, "mesh"),
+                    (serial, "serial")):
+        t0 = time.monotonic()
+        r.render_samples(4)
+        turns.append((name, (time.monotonic() - t0) / 4))
+    sps = {k: float(np.mean([t for m, t in turns if m == k]))
+           for k in ("serial", "mesh")}
+    log("[mesh] s/sample in turns (serial, mesh, mesh, serial): %s; means "
+        "serial %.4f, 4-shard mesh %.4f | %s" % (
+            ["%s %.4f" % t for t in turns], sps["serial"], sps["mesh"], smi))
+    out["turns"] = turns
+    out["s_per_sample"] = sps
+
+    # -- a 2x2 grid mesh: 2 samples a step over 2 pixel blocks, ids 0-3 --
+    del serial
+    rg = Renderer(benchmark_scene(W, H, max_depth=4),
+                  mesh=PM.make_grid_mesh(2, 2, [dev] * 4))
+    run("grid_mesh_2x2", rg, 4)
+    compare("grid_mesh_2x2", rg, ref, 2e-4, 1e-5)
+    del rg
+
+    # -- elasticity: shard 0 disabled, 3 samples on the re-formed mesh
+    # against a fresh 3-shard mesh --
+    r4.set_device_enable(0, False)
+    assert r4.sample_count == 0 and r4.mesh.size == 3
+    assert r4.device_states() == ["disabled", "enabled", "enabled", "enabled"]
+    run("reformed_3", r4, 3)
+    r3 = Renderer(benchmark_scene(W, H, max_depth=4),
+                  mesh=PM.make_sample_mesh([dev] * 3))
+    r3.render_samples(3)
+    a, b = r4.get_radiance(), r3.get_radiance()
+    out["reformed_3"] = dict(max_abs=float(np.abs(a - b).max()), atol=1e-6)
+    log("[mesh] shard 0 disabled: 3 samples on the re-formed mesh against a "
+        "fresh 3-shard mesh: max abs %.3g (atol 1e-6) | %s"
+        % (out["reformed_3"]["max_abs"], smi))
+    assert np.allclose(a, b, atol=1e-6), out["reformed_3"]
+    del r3, r4
+
+    # -- the distinct cards, where the machine has more than one --
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devs = [torch.device("cuda", i) for i in range(min(cards, 4))]
+        rs = Renderer(benchmark_scene(W, H, max_depth=4), device=dev)
+        rs.render_samples(len(devs))
+        rc = Renderer(benchmark_scene(W, H, max_depth=4),
+                      mesh=PM.make_sample_mesh(devs))
+        run("cards_%d" % len(devs), rc, len(devs))
+        compare("cards_%d" % len(devs), rc,
+                rs.accum.radiance.cpu().numpy(), 2e-4, 1e-5)
+        del rs, rc
+    else:
+        log("[mesh] one card visible: only shards of one card ran | %s" % smi)
+    out["cards"] = cards
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3214,6 +3365,9 @@ def main() -> int:
         for v in ("a", "b"):
             if k["name"] in optics[v]["launches"]:
                 k["optics_%s_launches" % v] = optics[v]["launches"][k["name"]]
+
+    # ---- 11. multi-device: sample and grid meshes, device elasticity ----
+    report["mesh"] = mesh_path(dev, smi)
     report["kernels"] = kern
 
     # the launch floor in every row's bound: max(bytes, operations, floor)

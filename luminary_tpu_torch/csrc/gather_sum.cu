@@ -245,18 +245,26 @@ gather_chain_kernel(const float4* __restrict__ tab, int rows, int cols4,
   store_sums<CHAIN_THREADS>(acc, out, col);
 }
 
-static int smem_optin() {
-  static int bytes = -1;
-  if (bytes < 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return bytes;
+// The opt-in limit and cudaFuncSetAttribute hold per device: the state
+// below is kept per device, indexed by the current one.
+constexpr int MAX_DEVICES = 64;
+
+static int current_device(int* dev) {
+  const int rc = (int)cudaGetDevice(dev);
+  if (rc != 0) return rc;
+  return *dev >= 0 && *dev < MAX_DEVICES ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// let `kernel` take `bytes` of dynamic shared memory (set once per size, so
-// that no call is made while a CUDA graph captures the launch)
+static int smem_optin(int dev) {
+  static int bytes[MAX_DEVICES] = {};
+  if (bytes[dev] <= 0)
+    cudaDeviceGetAttribute(&bytes[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes[dev];
+}
+
+// let `kernel` take `bytes` of dynamic shared memory on the current device
+// (set once per size, so that no call is made while a CUDA graph captures
+// the launch)
 template <class K>
 static int allow_smem(K kernel, size_t bytes, size_t* allowed) {
   if (bytes <= *allowed) return 0;
@@ -271,9 +279,12 @@ extern "C" int lum_gather_sum(const void* tab, long long rows, int cols,
                               void* stream) {
   if (cols <= 0 || cols > 128 || (cols & 3) != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
-  static size_t allowed = 0;
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  int rc = current_device(&dev);
+  if (rc != 0) return rc;
   const size_t bytes = 2 * STAGE * sizeof(float4);
-  const int rc = allow_smem(gather_sum_kernel, bytes, &allowed);
+  rc = allow_smem(gather_sum_kernel, bytes, &allowed[dev]);
   if (rc != 0) return rc;
   const int cols4 = cols / 4;
   gather_sum_kernel<<<cols4, SUM_THREADS, bytes, (cudaStream_t)stream>>>(
@@ -286,19 +297,22 @@ extern "C" int lum_gather_chain(const void* tab, int rows, int cols,
                                 void* stream) {
   if (cols <= 0 || cols > 128 || (cols & 3) != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
-  static size_t allowed_table = 0, allowed_walk = 0;
+  static size_t allowed_table[MAX_DEVICES] = {}, allowed_walk[MAX_DEVICES] = {};
+  int dev = 0;
+  const int rc_dev = current_device(&dev);
+  if (rc_dev != 0) return rc_dev;
   const size_t padded = (size_t)rows + ((size_t)rows >> 5) + 1;
   const size_t walk = 2 * STAGE * sizeof(float4) + (SEQ + SEQ / 32 + 1) * sizeof(int);
   const size_t table = walk + 3 * padded * sizeof(int);
   const size_t fixed = (SEQ / JUMP + 1) * sizeof(int);  // static shared
   const int cols4 = cols / 4;
-  if (table + fixed <= (size_t)smem_optin()) {
-    const int rc = allow_smem(gather_chain_kernel<true>, table, &allowed_table);
+  if (table + fixed <= (size_t)smem_optin(dev)) {
+    const int rc = allow_smem(gather_chain_kernel<true>, table, &allowed_table[dev]);
     if (rc != 0) return rc;
     gather_chain_kernel<true><<<cols4, CHAIN_THREADS, table, (cudaStream_t)stream>>>(
         (const float4*)tab, rows, cols4, (const float*)seed, steps, (float*)out);
   } else {
-    const int rc = allow_smem(gather_chain_kernel<false>, walk, &allowed_walk);
+    const int rc = allow_smem(gather_chain_kernel<false>, walk, &allowed_walk[dev]);
     if (rc != 0) return rc;
     gather_chain_kernel<false><<<cols4, CHAIN_THREADS, walk, (cudaStream_t)stream>>>(
         (const float4*)tab, rows, cols4, (const float*)seed, steps, (float*)out);

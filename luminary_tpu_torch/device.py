@@ -3,6 +3,8 @@ asks for the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,3 +23,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def on_device(device):
+    """Make ``device`` the current CUDA device for the block: the kernels
+    launch into ``torch.cuda.current_stream(device)``, and CUDA refuses a
+    launch into a stream of a device other than the current one. A no-op
+    context for a CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -11,13 +11,15 @@ Options mirror the reference CLI:
     -v, --verbose                   raise log verbosity
     --width W / --height H          override render resolution
     --dry-run                       parse + build only, no rendering
+    --mesh N                        distribute samples over N devices
     --device DEV                    torch device (default: the first CUDA
                                     card; "cpu" runs the plain PyTorch path)
 
 The port of ``luminary_tpu/frontend/cli.py``; ``--device`` takes the place
 of the reference's ``JAX_PLATFORMS``. Without ``--device`` the CLI renders
-on the card and fails on a machine without one. ``--mesh N`` with N > 1 (a
-multi-device render) is not ported and raises NotImplementedError.
+on the card and fails on a machine without one. ``--mesh N`` renders on the
+first N cards (and fails where fewer exist), or on N CPU shards with
+``--device cpu``.
 
 (The interactive SDL GUI's counterpart is the terminal viewer,
 ``python -m luminary_tpu_torch.frontend.viewer``; the observability it
@@ -52,7 +54,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--dry-run", action="store_true")
     p.add_argument(
         "--mesh", type=int, default=None, metavar="N",
-        help="render on an N-device mesh (not ported: N > 1 raises)",
+        help="distribute samples over N devices: the first N cards, or N "
+             "CPU shards with --device cpu",
     )
     p.add_argument(
         "--device", default=None,

@@ -15,8 +15,8 @@ Two execution modes:
 
 The port of ``luminary_tpu/host/host.py``. ``Host(device=None)`` renders on
 the first CUDA card and raises without one; ``device="cpu"`` runs the plain
-PyTorch path. What the port lacks (a multi-device mesh, device elasticity)
-raises NotImplementedError naming its ROADMAP item.
+PyTorch path. ``Host(mesh=N)`` renders on the first N cards, or on N CPU
+shards with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from ..device import resolve_device
 from ..io.lum import read_lum_file, write_lum_file, LumFileContent
 from ..io.png import write_png
 from ..io.wavefront import WavefrontArguments, read_obj_file
+from ..parallel.mesh import make_sample_mesh
 from ..render.renderer import Renderer
 from ..scene.entities import Instance, Material
 from ..scene.scene import DirtyFlags, Scene
@@ -69,16 +70,28 @@ class Host:
         mesh=None,
         device=None,
     ):
-        """mesh: None or 1 renders on one device; a larger mesh (multi-device
-        sample distribution) is not ported and raises. device: None means
-        the first CUDA card (raising without one), or any torch device."""
+        """mesh: multi-device rendering (reference: DeviceManager's
+        multi-GPU sample distribution, device_manager.c). Pass a
+        ``parallel.mesh.DeviceMesh`` with a "samples" axis, or an int N to
+        build one over the first N cards (N CPU shards where ``device`` is
+        the CPU); None or 1 renders on one device. device: None means the
+        first CUDA card (raising without one), or any torch device."""
         import threading
 
-        if mesh is not None and mesh != 1:
-            raise NotImplementedError(
-                f"mesh={mesh!r}: multi-device rendering is not ported to "
-                "PyTorch yet (ROADMAP.md queue 1 item 8)")
         self._device = resolve_device(device)
+        if isinstance(mesh, int):
+            if self._device.type == "cuda":
+                n = torch.cuda.device_count()
+                if mesh > n:
+                    raise ValueError(
+                        f"mesh={mesh} devices requested, {n} available")
+                devs = [torch.device("cuda", i) for i in range(mesh)]
+            else:
+                devs = [self._device] * mesh
+            mesh = make_sample_mesh(devs) if mesh > 1 else None
+        if mesh is not None:
+            self._device = mesh.shards[0]
+        self._mesh = mesh
         self.scene = Scene()
         self._renderer: Renderer | None = None
         self._renderer_lock = threading.RLock()
@@ -114,7 +127,8 @@ class Host:
             with self._renderer_lock:
                 if self._renderer is None:
                     self._renderer = Renderer(self.scene,
-                                              device=self._device)
+                                              device=self._device,
+                                              mesh=self._mesh)
         return self._renderer
 
     def destroy(self):
@@ -534,33 +548,57 @@ class Host:
 
     # -- device info --------------------------------------------------------
 
-    def get_device_count(self) -> int:
-        """CUDA cards visible to torch; 1 (the host) for a CPU Host."""
+    def _devices(self) -> list:
+        """The devices that ids index: the mesh's entries, else the CUDA
+        cards visible to torch, or the CPU."""
+        if self._mesh is not None:
+            return list(self._mesh.shards)
         if self._device.type == "cuda":
-            return torch.cuda.device_count()
-        return 1
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self._device]
+
+    def get_device_count(self) -> int:
+        return len(self._devices())
 
     def get_device_info(self, device_id: int) -> dict:
-        if not 0 <= device_id < self.get_device_count():
+        devs = self._devices()
+        if not 0 <= device_id < len(devs):
             raise InvalidAPIArgumentError(f"device id {device_id} out of range")
-        if self._device.type == "cuda":
-            name = f"cuda:{torch.cuda.get_device_name(device_id)}"
-            free, total = torch.cuda.mem_get_info(device_id)
+        d = devs[device_id]
+        if d.type == "cuda":
+            name = f"cuda:{torch.cuda.get_device_name(d)}"
+            free, total = torch.cuda.mem_get_info(d)
         else:
             name, free, total = "cpu", 0, 0
-        main_id = (self._device.index or 0) if self._device.type == "cuda" else 0
+        # elasticity state (reference: LuminaryDeviceInfo is_enabled /
+        # is_unavailable; Renderer.set_device_enable)
+        states = (self._renderer.device_states()
+                  if self._renderer is not None else [])
+        if self._mesh is not None:
+            state = states[device_id] if device_id < len(states) else "enabled"
+            enabled_ids = [i for i, s in enumerate(states) if s == "enabled"]
+            main_id = enabled_ids[0] if enabled_ids else 0
+        else:
+            state = "enabled"
+            main_id = devs.index(self._device)
         return {
             "is_main_device": device_id == main_id,
-            "is_unavailable": False,
-            "is_enabled": True,
+            "is_unavailable": state == "unavailable",
+            "is_enabled": state == "enabled",
             "name": name,
             "memory_size": total,
             "allocated_memory_size": total - free,
         }
 
     def set_device_enable(self, device_id: int, enable: bool) -> None:
-        """Hot-enable/disable of a mesh device: needs the multi-device
-        renderer, which is not ported yet."""
-        raise NotImplementedError(
-            "set_device_enable: device elasticity needs the multi-device "
-            "renderer, not ported to PyTorch yet (ROADMAP.md queue 1 item 8)")
+        """Hot-enable/disable a mesh device (reference:
+        luminary_host_set_device_enable, host.h:36). The mesh re-forms over
+        the enabled entries, the first enabled one becomes the main
+        (re-election), and the render restarts. A Host without a mesh
+        raises InvalidAPIArgumentError, before it packs any scene."""
+        if self._mesh is None:
+            raise InvalidAPIArgumentError(
+                "set_device_enable requires a mesh renderer")
+        with self._renderer_lock:
+            self.renderer.set_device_enable(device_id, enable)

@@ -160,7 +160,7 @@ def load_bluenoise() -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)  # one table per device
 def _bn_rows(device: torch.device) -> torch.Tensor:
     mask = load_bluenoise()
     rows = np.ascontiguousarray(mask.reshape(mask.shape[0], -1).T)

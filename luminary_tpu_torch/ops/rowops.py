@@ -64,7 +64,7 @@ def _launch(table, idx, n_cols, sub_stride):
         sub_stride, n_cols, out.data_ptr(), kernels.stream_handle(table.device))
     kernels.check(rc, "gather_soa")
     gather_soa.launches += 1
-    key = table.data_ptr()
+    key = (table.device, table.data_ptr())
     gather_soa.table_launches[key] = gather_soa.table_launches.get(key, 0) + 1
     return out
 
@@ -80,7 +80,8 @@ def gather_soa(table: torch.Tensor, idx: torch.Tensor, n_cols: int,
 
 
 gather_soa.launches = 0
-gather_soa.table_launches = {}  # launches by the table's data pointer
+# launches by the table's (device, data pointer)
+gather_soa.table_launches = {}
 
 
 def gather_planar(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

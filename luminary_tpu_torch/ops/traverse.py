@@ -481,7 +481,7 @@ def _launch(rows, num_nodes, depth, origin, direction, t_max, active, any_hit,
     traverse_wide.launches += 1
     variant = "any_hit" if any_hit else "closest"
     traverse_wide.variant_launches[variant] += 1
-    key = (variant, rows.data_ptr())
+    key = (variant, dev, rows.data_ptr())
     traverse_wide.table_launches[key] = traverse_wide.table_launches.get(key, 0) + 1
     if stats is not None:
         stats["node_tests"], stats["tri_tests"] = (int(v) for v in counters.cpu())
@@ -513,7 +513,8 @@ def traverse_wide(rows: torch.Tensor, num_nodes: int, depth: int,
 
 traverse_wide.launches = 0
 traverse_wide.variant_launches = {"closest": 0, "any_hit": 0}
-# launches by (variant, the table's data pointer): the main and shadow tables
+# launches by (variant, the table's device and data pointer): the main and
+# shadow tables
 traverse_wide.table_launches = {}
 
 

@@ -6,6 +6,8 @@ tonemap, the undersampled preview, picking and checkpoint/resume).
 ``Renderer(scene, device=None)`` renders on the first CUDA card and raises
 without one; ``device="cpu"`` runs the plain PyTorch path. The scene's
 settings switch every RenderConfig feature as the reference's Renderer does.
+``Renderer(scene, mesh=...)`` distributes samples over a device mesh
+(``parallel/mesh.py``) with hot device enable and disable.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..ops.camera import pack_camera
 from ..ops.clouds import active_layer_indices
 from ..ops.post import (
@@ -34,6 +36,7 @@ from ..ops.tonemap import (
 )
 from ..scene.entities import TEXTURE_NONE
 from ..scene.scene import DirtyFlags, Scene
+from ..utils.errors import InvalidAPIArgumentError
 from ..utils.profiling import StageRanges
 from .adaptive import allocate_stage_tasks, block_error_map, scatter_add_stage
 from .device_scene import pack_scene
@@ -143,12 +146,38 @@ def _round_up(x: int, m: int) -> int:
 
 
 class Renderer:
-    """Single-card renderer over the port's device scene."""
+    """Renderer over one device or a device mesh.
 
-    def __init__(self, scene: Scene, chunk: int = 1 << 20, device=None):
+    mesh: optional ``parallel.mesh.DeviceMesh`` with a "samples" axis (and
+    optionally "pixels"): samples are distributed across its shards and the
+    moment accumulators added on the main device, the reference's multi-GPU
+    result interface (device_result_interface.c, device.c:1587-1624). Each
+    render_samples budget is rounded up to a multiple of the samples axis.
+    The main device is the mesh's first enabled entry; the accumulators,
+    the pixel lanes, checkpoints and the preview live there. ``device``,
+    where given with a mesh, must be that entry.
+    """
+
+    def __init__(self, scene: Scene, chunk: int = 1 << 20, device=None,
+                 mesh=None):
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.shards[0]:
+                raise ValueError("device %s is not the mesh's main device %s"
+                                 % (device, mesh.shards[0]))
+            device = mesh.shards[0]
         self.device = resolve_device(device)
         self.scene = scene
         self.chunk = chunk
+        self.mesh = mesh
+        # device elasticity (reference: device_manager.c:529-572 hot enable
+        # and disable, device.h:83 DEVICE_STATE_UNAVAILABLE): the mesh's
+        # entries stay as given; the live mesh is re-formed over the enabled
+        # ones, and the first enabled entry is the main (re-election by order)
+        self._mesh_devices = list(mesh.shards) if mesh is not None else None
+        self._device_state = (["enabled"] * len(self._mesh_devices)
+                              if mesh is not None else None)
+        self._dist_step = None
+        self._dist_config = None
         self.device_scene = None
         self.device_camera = None
         self.config: RenderConfig | None = None
@@ -171,6 +200,13 @@ class Renderer:
         flags = self.scene.consume_dirty()
         if flags == DirtyFlags.NONE:
             return flags
+        with on_device(self.device):
+            self._pack()
+        return flags
+
+    def _pack(self):
+        """Pack the scene, the camera and the config on the main device
+        and restart the render."""
         s = self.scene.settings
         ss = max(int(s.supersampling), 1)
         rw_full, rh_full = s.width * ss, s.height * ss
@@ -243,7 +279,8 @@ class Renderer:
         self.device_camera = pack_camera(self.scene.camera, self.device)
         self._ss = ss
         self._chunk = chunk
-        if new_region != self._region or self._px is None:
+        if (new_region != self._region or self._px is None
+                or self._px.device != self.device):
             self._region = new_region
             n_pad = chunk * n_chunks
             idx = np.minimum(np.arange(n_pad, dtype=np.int64), n_pixels - 1)
@@ -252,7 +289,6 @@ class Renderer:
             self._py = torch.as_tensor((ry + idx // rw).astype(np.int32),
                                        device=self.device)
         self.start_new_render()
-        return flags
 
     def start_new_render(self):
         n_pad = int(self._px.shape[0])
@@ -303,6 +339,90 @@ class Renderer:
                 torch.as_tensor(z[k], device=self.device)
                 for k in ("radiance", "lum_sq", "sample_count")))
 
+    # -- device elasticity (reference: device_manager.c:529-572 hot device
+    # enable/disable with main re-election; failure detection, the analog
+    # of DEVICE_STATE_UNAVAILABLE, device.h:83) ------------------------------
+
+    def set_device_enable(self, device_id: int, enable: bool):
+        """Hot-enable/disable a mesh device (reference:
+        luminary_host_set_device_enable, host.h:36). Re-forms the mesh over
+        the enabled entries (the first enabled one is the main:
+        re-election) and restarts accumulation, as the reference's
+        INTEGRATION dirty and render restart."""
+        if self._mesh_devices is None:
+            raise InvalidAPIArgumentError(
+                "set_device_enable requires a mesh renderer")
+        if not 0 <= device_id < len(self._mesh_devices):
+            raise InvalidAPIArgumentError(
+                f"device id {device_id} out of range")
+        state = self._device_state[device_id]
+        if state == "unavailable" and enable:
+            raise InvalidAPIArgumentError(
+                "Tried to enable an unavailable device.")
+        new_state = "enabled" if enable else "disabled"
+        if state == new_state:
+            return
+        self._device_state[device_id] = new_state
+        self._reform_mesh()
+
+    def device_states(self) -> list:
+        return list(self._device_state or [])
+
+    def _reform_mesh(self):
+        """Rebuild the live mesh over the enabled entries and restart the
+        render; a new main device gets the scene packed anew (the old one
+        may not answer any more)."""
+        from ..parallel.mesh import make_sample_mesh
+
+        enabled = [d for d, s in zip(self._mesh_devices, self._device_state)
+                   if s == "enabled"]
+        if not enabled:
+            raise RuntimeError("no devices left enabled")
+        self.mesh = make_sample_mesh(enabled)
+        self._dist_step = None  # the step is built per mesh
+        self._dist_config = None
+        if enabled[0] != self.device:
+            self.device = enabled[0]
+            self.gbuffer = None
+            if self._px is not None:
+                with on_device(self.device):
+                    self._pack()
+        elif self._px is not None:
+            self.start_new_render()
+
+    def _probe_mesh_devices(self) -> list:
+        """The ids of the enabled mesh entries whose device still answers (a
+        tiny computation per distinct device)."""
+        answers = {}
+        alive = []
+        for i, (d, s) in enumerate(zip(self._mesh_devices,
+                                       self._device_state)):
+            if s != "enabled":
+                continue
+            if d not in answers:
+                try:
+                    x = torch.ones(8, dtype=torch.float32, device=d)
+                    answers[d] = bool(float((x + 1.0).sum()) == 16.0)
+                except Exception:
+                    answers[d] = False
+            if answers[d]:
+                alive.append(i)
+        return alive
+
+    def _recover_dead_devices(self) -> bool:
+        """Mark the enabled entries the probe does not see unavailable and
+        re-form the mesh. Returns True if any was dropped (the render
+        restarts on the new mesh)."""
+        alive = set(self._probe_mesh_devices())
+        dropped = False
+        for i, s in enumerate(self._device_state):
+            if s == "enabled" and i not in alive:
+                self._device_state[i] = "unavailable"
+                dropped = True
+        if dropped:
+            self._reform_mesh()
+        return dropped
+
     # -- undersampled preview ------------------------------------------------
 
     def render_preview(self, level: int):
@@ -319,9 +439,10 @@ class Renderer:
                              device=self.device)
         py = torch.as_tensor((ry + np.minimum(uy, rh - 1)).astype(np.int32),
                              device=self.device)
-        radiance, _, _ = render_sample(self.device_scene, self.device_camera,
-                                       self.config, px, py, 0,
-                                       with_gbuffer=False)
+        with on_device(self.device):
+            radiance, _, _ = render_sample(self.device_scene,
+                                           self.device_camera, self.config,
+                                           px, py, 0, with_gbuffer=False)
         self._preview = (level, pw, ph, radiance.cpu().numpy())
 
     def _preview_image_accum(self) -> AccumState:
@@ -356,29 +477,86 @@ class Renderer:
     def render_samples(self, num_samples: int):
         """Advance accumulation by a budget of num_samples full-frame samples
         (blocking: ends with a device synchronise). With adaptive sampling
-        enabled, part of the budget goes to high-variance 4x4 blocks."""
+        enabled, part of the budget goes to high-variance 4x4 blocks; a
+        mesh renderer distributes the budget over its shards instead."""
         self.update()
         t0 = time.monotonic()
-        if self.scene.settings.enable_adaptive_sampling:
-            rays = self._render_adaptive(num_samples)
-        else:
-            start = self.sample_count
-            last = start + num_samples - 1
-            rays = None
-            # picking reads the last sample's gbuffer: only it is built
-            for i in range(start, last + 1):
-                self.accum, gbuffer, r = _sample_step(
-                    self.device_scene, self.device_camera, self.config,
-                    self._px, self._py, i, self.accum, with_gbuffer=i == last)
-                if gbuffer is not None:
-                    self.gbuffer = gbuffer
-                rays = r if rays is None else rays + r
-            if rays is not None:
-                self._last_rays_per_sample = float(r)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        rays = self._render(num_samples)
         self._last_rays_traced = float(rays) if rays is not None else 0.0
         self._last_sample_time = (time.monotonic() - t0) / max(num_samples, 1)
+
+    def _render(self, num_samples: int):
+        """The budget on the mesh, adaptively or sample by sample, ended by
+        a synchronise of every device it ran on. Returns the rays traced
+        (0-d tensor) or None."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._render_mesh(num_samples)
+        with on_device(self.device):
+            if self.scene.settings.enable_adaptive_sampling:
+                rays = self._render_adaptive(num_samples)
+            else:
+                start = self.sample_count
+                last = start + num_samples - 1
+                rays = None
+                # picking reads the last sample's gbuffer: only it is built
+                for i in range(start, last + 1):
+                    self.accum, gbuffer, r = _sample_step(
+                        self.device_scene, self.device_camera, self.config,
+                        self._px, self._py, i, self.accum,
+                        with_gbuffer=i == last)
+                    if gbuffer is not None:
+                        self.gbuffer = gbuffer
+                    rays = r if rays is None else rays + r
+                if rays is not None:
+                    self._last_rays_per_sample = float(r)
+        self._synchronize()
+        return rays
+
+    def _synchronize(self):
+        devices = self.mesh.distinct() if self.mesh is not None else [self.device]
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _render_mesh(self, num_samples: int):
+        """Distribute whole samples over the mesh's "samples" axis and add
+        the moments on the main device (the reference's result interface).
+        Returns the rays traced."""
+        from ..parallel.mesh import distributed_sample_step, shard_pixels
+
+        if self._dist_step is None or self._dist_config != self.config:
+            self._dist_step, self._n_axis = distributed_sample_step(
+                self.mesh, self.config)
+            self._dist_config = self.config
+        n_axis = self._n_axis
+        px, py, rad, lsq = shard_pixels(self.mesh, self._px, self._py,
+                                        self.accum.radiance, self.accum.lum_sq)
+        count = self.accum.sample_count
+        base = self.sample_count
+        steps = max((num_samples + n_axis - 1) // n_axis, 1)
+        rays = None
+        try:
+            for k in range(steps):
+                rad, lsq, gbuf, r = self._dist_step(
+                    self.device_scene, self.device_camera, px, py, rad, lsq,
+                    base + k * n_axis)
+                count = count + n_axis
+                rays = r if rays is None else rays + r
+            self._synchronize()
+        except Exception:
+            # failure detection and elastic recovery (reference: device
+            # errors → DEVICE_STATE_UNAVAILABLE and a render restart): probe
+            # the mesh, drop the devices that do not answer, restart the
+            # budget on the re-formed mesh. A failure while every device
+            # answers is a real error and propagates.
+            if not self._recover_dead_devices():
+                raise
+            return self._render(num_samples)
+        self.accum = AccumState(radiance=rad, lum_sq=lsq, sample_count=count)
+        # picking and ray accounting as on the single-device path
+        self.gbuffer = gbuf
+        self._last_rays_per_sample = float(r) / n_axis
+        return rays
 
     def _render_adaptive(self, num_samples: int):
         """Stage 0 renders uniform samples until every pixel has a baseline;

@@ -118,6 +118,53 @@ def test_checkpoint_loads_across_packages(fx, tmp_path, direction):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
+def test_mesh_host_matches_jax(fx):
+    """Host(mesh=4) on CPU shards, one step of the 4 samples: within the CLI
+    bound of the JAX render, and at the mesh tolerance of the port's serial
+    CLI render."""
+    host = Host(mesh=4, device="cpu", samples_per_step=4)
+    host.load_lum_file(fx["lum"])
+    handle = _await(host, host.request_output(4))
+    assert host.get_image_meta(handle)["sample_count"] == 4
+    got = host.renderer.get_radiance()
+    ref = fx["jax"]["radiance"]
+    rmse = float(np.sqrt(np.mean((got - ref) ** 2)))
+    assert rmse / (float(np.abs(ref).mean()) + 1e-6) < 0.02
+    np.testing.assert_allclose(got, fx["torch"]["radiance"], rtol=2e-4,
+                               atol=1e-5)
+
+
+def test_cli_mesh_png_matches_jax(fx):
+    png = str(fx["dir"] / "torch_mesh.png")
+    host = _run_cli(tcli, [fx["lum"], "-s", "4", "-o", png, "--mesh", "4",
+                           "--device", "cpu"])
+    assert host.renderer.mesh.size == 4
+    got, ref = read_png(png), fx["jax"]["png"]
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    assert (diff <= 1).mean() >= 0.99, diff.max()
+
+
+def test_mesh_checkpoint_loads_into_jax(fx, tmp_path):
+    """A mesh renderer's checkpoint loads into a fresh JAX Renderer of the
+    same scene (no render on the JAX side)."""
+    from luminary_tpu.render.renderer import Renderer as JRenderer
+    from luminary_tpu.testing import cornell_scene as jcornell_scene
+
+    from luminary_tpu_torch.parallel.mesh import make_sample_mesh
+    from luminary_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(cornell_scene(16, 16, max_depth=2),
+                 mesh=make_sample_mesh(["cpu"] * 2))
+    r.render_samples(2)
+    path = str(tmp_path / "mesh.npz")
+    r.save_checkpoint(path)
+    jr = JRenderer(jcornell_scene(16, 16, max_depth=2))
+    jr.load_checkpoint(path)
+    for x, y in zip(r.accum, jr.accum):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert jr.sample_count == 2
+
+
 @pytest.mark.parametrize("mode", [1, 2, 3])
 def test_debug_output_images_match_jax(fx, mode):
     """VARIANCE / ERROR / SAMPLE_DISTRIBUTION on the same accumulators."""

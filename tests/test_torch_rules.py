@@ -39,6 +39,7 @@ def test_import_leaves_jax_out():
         "import luminary_tpu_torch.io, luminary_tpu_torch.io.qoi\n"
         "import luminary_tpu_torch.io.lum_v5\n"
         "import luminary_tpu_torch.host.host\n"
+        "import luminary_tpu_torch.parallel.mesh\n"
         "import luminary_tpu_torch.host.queue_worker\n"
         "import luminary_tpu_torch.frontend.cli\n"
         "import luminary_tpu_torch.frontend.benchmark\n"
@@ -329,23 +330,48 @@ def test_host_and_cli_without_device_need_a_card(monkeypatch, tmp_path):
     assert not (tmp_path / "o.png").exists()
 
 
-@pytest.mark.parametrize("feature", ["mesh", "cli_mesh", "set_device_enable"])
-def test_unported_host_features_raise(tmp_path, feature):
-    """What the port lacks raises NotImplementedError naming its ROADMAP
-    item; nothing falls back to a quiet single-device run."""
-    from luminary_tpu_torch.frontend import cli
+@pytest.mark.parametrize("case", ["set_device_enable_without_mesh",
+                                  "host_mesh_without_card",
+                                  "sample_mesh_without_card",
+                                  "host_mesh_over_the_cards",
+                                  "pixel_block_not_whole_packets"])
+def test_mesh_refusals(monkeypatch, case):
+    """The JAX package's refusals on the mesh path, and no fallback: without
+    a card neither a mesh Host nor a mesh of every visible card quietly runs
+    on the CPU, and a mesh of N cards is not made of shards of fewer."""
     from luminary_tpu_torch.host.host import Host
-    from luminary_tpu_torch.testing import write_obj_scene
+    from luminary_tpu_torch.parallel.mesh import (
+        distributed_sample_step,
+        make_grid_mesh,
+        make_sample_mesh,
+        shard_pixels,
+    )
+    from luminary_tpu_torch.utils.errors import InvalidAPIArgumentError
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        if feature == "mesh":
-            Host(mesh=2, device="cpu")
-        elif feature == "cli_mesh":
-            lum = write_obj_scene(cornell_scene(8, 8), str(tmp_path), "box")
-            cli.main([lum, "--mesh", "2", "--device", "cpu", "-s", "1"])
-        else:
-            Host(device="cpu").set_device_enable(0, False)
-    assert Host(mesh=1, device="cpu").get_device_count() == 1
+    if case == "set_device_enable_without_mesh":
+        host = Host(device="cpu")
+        with pytest.raises(InvalidAPIArgumentError, match="requires a mesh"):
+            host.set_device_enable(0, False)
+        assert Host(mesh=1, device="cpu").get_device_count() == 1
+    elif case in ("host_mesh_without_card", "sample_mesh_without_card"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Host(mesh=2) if case == "host_mesh_without_card" else make_sample_mesh()
+    elif case == "host_mesh_over_the_cards":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        with pytest.raises(ValueError, match="mesh=2 devices requested, 1"):
+            Host(mesh=2)
+    else:
+        mesh = make_grid_mesh(1, 2, ["cpu"] * 2)
+        lanes = torch.zeros(96, dtype=torch.int32)  # blocks of 48 lanes
+        with pytest.raises(ValueError, match="multiple of 32 lanes"):
+            shard_pixels(mesh, lanes)
+        step, _ = distributed_sample_step(mesh, None)
+        with pytest.raises(ValueError, match="multiple of 32 lanes"):
+            step(None, None, lanes, lanes, None, None, 0)
+        assert shard_pixels(mesh, lanes[:64])[0].shape == (64,)
 
 
 def test_adaptive_sampling_is_not_ignored():
